@@ -1,0 +1,189 @@
+"""Pyramid ROIAlign forward: the CUDA kernel and its plain version.
+
+``roi_align`` launches ``csrc/roi_align.cu`` for CUDA tensors (one launch
+for the batch, one thread block per ROI) and runs ``roi_align_plain`` for CPU
+tensors. Each ROI is pooled from the FPN level the reference's formula
+assigns it, with ``crop_and_resize`` bilinear samples whose grid endpoints
+sit on the box corners scaled by ``(H_l - 1, W_l - 1)``; corners clamp to the
+map and zero-area boxes pool zeros (``maskrcnn_tf2_tpu/ops/roi_align.py``).
+The output is ``[B, N, P, P, C]`` in ROI order, in the features' dtype; both
+versions sum the four weighted corners in float32 and round once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from maskrcnn_tf2_tpu_torch.kernels import _build
+
+MAX_LEVELS = 4
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def roi_level_assignment(
+    boxes: torch.Tensor,
+    image_area: float,
+    num_levels: int = 4,
+    denominator: float = 244.0,
+) -> torch.Tensor:
+    """0-based FPN level per ROI: ``4 + round(log2(sqrt(h*w) /
+    (denominator / sqrt(image_area))))`` clipped to [2, 1 + num_levels],
+    rounding half to even; zero-area boxes map to 0."""
+    h = boxes[..., 2] - boxes[..., 0]
+    w = boxes[..., 3] - boxes[..., 1]
+    scale = torch.sqrt(torch.clamp(h * w, min=1e-12))
+    # tensor / tensor: Python-scalar / tensor would round twice (reciprocal, then multiply)
+    image_scale = boxes.new_tensor(denominator) / torch.sqrt(boxes.new_tensor(image_area))
+    lvl = torch.round(torch.log2(scale / image_scale)).to(torch.int32) + 4
+    lvl = torch.clamp(lvl, 2, 2 + num_levels - 1) - 2
+    valid = (h > 0) & (w > 0)
+    return torch.where(valid, lvl, torch.zeros_like(lvl))
+
+
+def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None:
+    if not 1 <= len(features) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} pyramid levels, got {len(features)}")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError("boxes must be float32 [B, N, 4]")
+    b, c = boxes.shape[0], features[0].shape[-1]
+    dtype = features[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"features must be float32 or bfloat16, got {dtype}")
+    for f in features:
+        if f.dim() != 4 or f.shape[0] != b or f.shape[-1] != c:
+            raise ValueError(f"features must be [B={b}, H, W, C={c}], got {tuple(f.shape)}")
+        if f.dtype != dtype or f.device != boxes.device:
+            raise ValueError("features and boxes must share dtype (features) and device")
+
+
+def roi_align_plain(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    pool_size: int,
+    image_shape: Sequence[int],
+    denominator: float = 244.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``roi_align``: one gather of the four corners
+    of every sample from the flattened pyramid, then the weighted sum (the
+    form of ``maskrcnn_tf2_tpu/ops/roi_align.py::pyramid_roi_align_gather``)."""
+    _check_inputs(features, boxes)
+    b, n, _ = boxes.shape
+    p = pool_size
+    c = features[0].shape[-1]
+    dev = boxes.device
+    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)
+    sizes = [f.shape[1] * f.shape[2] for f in features]
+    offsets = torch.tensor(np.cumsum([0] + sizes[:-1]), device=dev)
+    heights = torch.tensor([f.shape[1] for f in features], device=dev)
+    widths = torch.tensor([f.shape[2] for f in features], device=dev)
+
+    image_area = float(image_shape[0]) * float(image_shape[1])
+    levels = roi_level_assignment(boxes, image_area, len(features), denominator).long()
+    lvl_h, lvl_w, lvl_off = heights[levels], widths[levels], offsets[levels]  # [B, N]
+
+    y1, x1, y2, x2 = (boxes[..., i] for i in range(4))
+    hm1 = (lvl_h - 1).to(torch.float32)[..., None]
+    wm1 = (lvl_w - 1).to(torch.float32)[..., None]
+    if p > 1:
+        # IEEE division on the host: PyTorch's CUDA division by a Python
+        # scalar multiplies by its reciprocal, one rounding off the kernel's
+        frac = torch.from_numpy(np.arange(p, dtype=np.float32) / np.float32(p - 1)).to(dev)
+        ys = (y1[..., None] + (y2 - y1)[..., None] * frac) * hm1  # [B, N, P]
+        xs = (x1[..., None] + (x2 - x1)[..., None] * frac) * wm1
+    else:
+        ys = (0.5 * (y1 + y2))[..., None] * hm1
+        xs = (0.5 * (x1 + x2))[..., None] * wm1
+
+    def corners(coord, size_m1):
+        c0 = torch.minimum(torch.clamp(torch.floor(coord), min=0.0), size_m1)
+        c1 = torch.minimum(torch.clamp(c0 + 1, min=0.0), size_m1)
+        t = torch.clamp(coord - c0, 0.0, 1.0)
+        return c0.long(), c1.long(), t
+
+    y0, y1i, ty = corners(ys, hm1)
+    x0, x1i, tx = corners(xs, wm1)
+
+    off = lvl_off[..., None, None]
+    wl = lvl_w[..., None, None]
+    yy0, yy1 = y0[..., :, None] * wl, y1i[..., :, None] * wl  # [B, N, P, 1]
+    xx0, xx1 = x0[..., None, :], x1i[..., None, :]  # [B, N, 1, P]
+    idx = torch.stack(
+        [off + yy0 + xx0, off + yy0 + xx1, off + yy1 + xx0, off + yy1 + xx1], dim=-1
+    )  # [B, N, P, P, 4]
+    wy1, wx1 = ty[..., :, None], tx[..., None, :]
+    weights = torch.stack(
+        [(1.0 - wy1) * (1.0 - wx1), (1.0 - wy1) * wx1, wy1 * (1.0 - wx1), wy1 * wx1],
+        dim=-1,
+    )  # [B, N, P, P, 4]
+
+    gathered = torch.gather(flat, 1, idx.reshape(b, -1, 1).expand(-1, -1, c))
+    gathered = gathered.reshape(b, n, p, p, 4, c).to(torch.float32)
+    out = (gathered * weights[..., None]).sum(dim=-2)
+    box_valid = (y2 > y1) & (x2 > x1)
+    out = out * box_valid[..., None, None, None].to(out.dtype)
+    return out.to(features[0].dtype)
+
+
+def roi_align(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    pool_size: int,
+    image_shape: Sequence[int],
+    denominator: float = 244.0,
+) -> torch.Tensor:
+    """Pool ``boxes [B, N, 4]`` (normalized, float32) from the level maps
+    ``features`` (``[B, H_l, W_l, C]``, finest first) into ``[B, N, P, P, C]``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    needs contiguous channels-last maps.
+    """
+    _check_inputs(features, boxes)
+    if boxes.device.type == "cpu":
+        return roi_align_plain(features, boxes, pool_size, image_shape, denominator)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align runs on cpu or cuda, not {boxes.device}")
+    if not (boxes.is_contiguous() and all(f.is_contiguous() for f in features)):
+        raise ValueError("roi_align needs contiguous boxes and [B, H, W, C] maps")
+    if boxes.data_ptr() % 16:
+        raise ValueError("roi_align reads boxes as float4: they must be 16-byte aligned")
+    if pool_size < 1:
+        raise ValueError(f"pool_size must be >= 1, got {pool_size}")
+    b, n, _ = boxes.shape
+    c = features[0].shape[-1]
+    out = torch.empty((b, n, pool_size, pool_size, c), dtype=features[0].dtype, device=boxes.device)
+    if out.numel() == 0:
+        return out
+    levels = list(features) + [None] * (MAX_LEVELS - len(features))
+    ptrs = [f.data_ptr() if f is not None else None for f in levels]
+    hs = [f.shape[1] if f is not None else 0 for f in levels]
+    ws = [f.shape[2] if f is not None else 0 for f in levels]
+    image_area = np.float32(float(image_shape[0]) * float(image_shape[1]))
+    image_scale = np.float32(denominator) / np.sqrt(image_area)
+    lib = _build.load("roi_align", _SIGNATURES)
+    with torch.cuda.device(boxes.device):  # the launch goes to the current device
+        status = lib.roi_align_launch(
+            *ptrs, *hs, *ws, len(features),
+            boxes.data_ptr(), b, n, c, pool_size, float(image_scale),
+            _DTYPE_CODES[features[0].dtype], out.data_ptr(),
+            torch.cuda.current_stream(boxes.device).cuda_stream,
+        )
+    _build.check(lib, status, "roi_align")
+    roi_align.launches += 1
+    return out
+
+
+roi_align.launches = 0
+
+_SIGNATURES = {
+    "roi_align_launch": (
+        [ctypes.c_void_p] * MAX_LEVELS
+        + [ctypes.c_int] * (2 * MAX_LEVELS + 1)
+        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int,
+    )
+}

@@ -38,3 +38,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run with -m gpu on the card)"
+    )
