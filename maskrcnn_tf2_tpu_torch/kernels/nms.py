@@ -21,6 +21,10 @@ from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.ops.boxes import overlaps
 
 TILE = 512  # rows per step of the plain version's tile-sequential sweep
+# A Hopper block has 232,448 bytes of shared memory: the kernel's tile arrays
+# take 6,148 and each kept box 20 (its float4 and its area), past 48 KB by the
+# launcher's opt-in to the larger dynamic size.
+MAX_KERNEL_LIMIT = (232448 - 6148) // 20
 
 
 def _check_inputs(boxes_s: torch.Tensor, valid_s: torch.Tensor, limit: int) -> None:
@@ -34,6 +38,17 @@ def _check_inputs(boxes_s: torch.Tensor, valid_s: torch.Tensor, limit: int) -> N
         raise ValueError("boxes and valid must be on one device")
     if limit < 0:
         raise ValueError(f"limit must be >= 0, got {limit}")
+
+
+def check_kernel_limit(limit: int) -> None:
+    """Raise, naming the configuration knobs, if ``limit`` kept boxes do not
+    fit the kernel's shared memory."""
+    if limit > MAX_KERNEL_LIMIT:
+        raise ValueError(
+            f"greedy_nms keeps at most {MAX_KERNEL_LIMIT} boxes per image on the card "
+            f"(limit {limit} x 20 bytes of shared memory per block); lower "
+            "post_nms_rois_training, post_nms_rois_inference or detection_max_instances"
+        )
 
 
 def _compact(keep: torch.Tensor, limit: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,6 +129,7 @@ def greedy_nms(
         raise ValueError("greedy_nms needs contiguous boxes and valid")
     if boxes_s.data_ptr() % 16:
         raise ValueError("greedy_nms reads boxes as float4: they must be 16-byte aligned")
+    check_kernel_limit(limit)
     b, n, _ = boxes_s.shape
     positions = torch.empty((b, limit), dtype=torch.int32, device=boxes_s.device)
     out_valid = torch.empty((b, limit), dtype=torch.bool, device=boxes_s.device)

@@ -1,19 +1,27 @@
-"""Pyramid ROIAlign forward: the CUDA kernel and its plain version.
+"""Pyramid ROIAlign, forward and backward: the CUDA kernels and their plain
+versions.
 
-``roi_align`` launches ``csrc/roi_align.cu`` for CUDA tensors (one launch
-for the batch, one thread block per ROI) and runs ``roi_align_plain`` for CPU
-tensors. Each ROI is pooled from the FPN level the reference's formula
-assigns it, with ``crop_and_resize`` bilinear samples whose grid endpoints
-sit on the box corners scaled by ``(H_l - 1, W_l - 1)``; corners clamp to the
-map and zero-area boxes pool zeros (``maskrcnn_tf2_tpu/ops/roi_align.py``).
-The output is ``[B, N, P, P, C]`` in ROI order, in the features' dtype; both
-versions sum the four weighted corners in float32 and round once.
+``roi_align`` launches ``csrc/roi_align.cu``'s forward kernel for CUDA
+tensors (one launch for the batch, one thread block per ROI) and runs
+``roi_align_plain`` for CPU tensors. Each ROI is pooled from the FPN level the
+reference's formula assigns it, with ``crop_and_resize`` bilinear samples
+whose grid endpoints sit on the box corners scaled by ``(H_l - 1, W_l - 1)``;
+corners clamp to the map and zero-area boxes pool zeros
+(``maskrcnn_tf2_tpu/ops/roi_align.py``). The output is ``[B, N, P, P, C]`` in
+ROI order, in the features' dtype; both versions sum the four weighted
+corners in float32 and round once.
+
+``roi_align_backward`` is its transpose: each ROI's pooled cotangent is
+scatter-added through the same four weights into float32 maps ``[B, H_l,
+W_l, C]``, then cast once to the features' dtype. The CUDA kernel adds with
+atomics, so its sums vary in order from run to run; ``roi_align_backward_plain``
+adds with ``index_add_``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,29 +68,19 @@ def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None
             raise ValueError("features and boxes must share dtype (features) and device")
 
 
-def roi_align_plain(
-    features: Sequence[torch.Tensor],
-    boxes: torch.Tensor,
-    pool_size: int,
-    image_shape: Sequence[int],
-    denominator: float = 244.0,
-) -> torch.Tensor:
-    """Plain PyTorch version of ``roi_align``: one gather of the four corners
-    of every sample from the flattened pyramid, then the weighted sum (the
-    form of ``maskrcnn_tf2_tpu/ops/roi_align.py::pyramid_roi_align_gather``)."""
-    _check_inputs(features, boxes)
-    b, n, _ = boxes.shape
-    p = pool_size
-    c = features[0].shape[-1]
+def _geometry(level_hw: Sequence[Tuple[int, int]], boxes: torch.Tensor, p: int,
+              image_shape: Sequence[int], denominator: float):
+    """Flat-pyramid indices ``[B, N, P, P, 4]`` of every sample's four corners,
+    their bilinear weights (float32, same shape) and the non-zero-area mask
+    ``[B, N]`` (the form of ``pyramid_roi_align_gather``)."""
     dev = boxes.device
-    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)
-    sizes = [f.shape[1] * f.shape[2] for f in features]
+    sizes = [h * w for h, w in level_hw]
     offsets = torch.tensor(np.cumsum([0] + sizes[:-1]), device=dev)
-    heights = torch.tensor([f.shape[1] for f in features], device=dev)
-    widths = torch.tensor([f.shape[2] for f in features], device=dev)
+    heights = torch.tensor([h for h, _ in level_hw], device=dev)
+    widths = torch.tensor([w for _, w in level_hw], device=dev)
 
     image_area = float(image_shape[0]) * float(image_shape[1])
-    levels = roi_level_assignment(boxes, image_area, len(features), denominator).long()
+    levels = roi_level_assignment(boxes, image_area, len(level_hw), denominator).long()
     lvl_h, lvl_w, lvl_off = heights[levels], widths[levels], offsets[levels]  # [B, N]
 
     y1, x1, y2, x2 = (boxes[..., i] for i in range(4))
@@ -119,11 +117,30 @@ def roi_align_plain(
         [(1.0 - wy1) * (1.0 - wx1), (1.0 - wy1) * wx1, wy1 * (1.0 - wx1), wy1 * wx1],
         dim=-1,
     )  # [B, N, P, P, 4]
+    box_valid = (y2 > y1) & (x2 > x1)
+    return idx, weights, box_valid
 
+
+def roi_align_plain(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    pool_size: int,
+    image_shape: Sequence[int],
+    denominator: float = 244.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``roi_align``: one gather of the four corners
+    of every sample from the flattened pyramid, then the weighted sum (the
+    form of ``maskrcnn_tf2_tpu/ops/roi_align.py::pyramid_roi_align_gather``)."""
+    _check_inputs(features, boxes)
+    b, n, _ = boxes.shape
+    p = pool_size
+    c = features[0].shape[-1]
+    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)
+    idx, weights, box_valid = _geometry(
+        [(f.shape[1], f.shape[2]) for f in features], boxes, p, image_shape, denominator)
     gathered = torch.gather(flat, 1, idx.reshape(b, -1, 1).expand(-1, -1, c))
     gathered = gathered.reshape(b, n, p, p, 4, c).to(torch.float32)
     out = (gathered * weights[..., None]).sum(dim=-2)
-    box_valid = (y2 > y1) & (x2 > x1)
     out = out * box_valid[..., None, None, None].to(out.dtype)
     return out.to(features[0].dtype)
 
@@ -178,6 +195,101 @@ def roi_align(
 
 roi_align.launches = 0
 
+
+def _check_backward_inputs(dout: torch.Tensor, boxes: torch.Tensor, level_hw) -> None:
+    if not 1 <= len(level_hw) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} pyramid levels, got {len(level_hw)}")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError("boxes must be float32 [B, N, 4]")
+    if dout.dim() != 5 or dout.shape[:2] != boxes.shape[:2] or dout.shape[2] != dout.shape[3]:
+        raise ValueError(f"dout must be [B, N, P, P, C] over boxes {tuple(boxes.shape)}, got {tuple(dout.shape)}")
+    if dout.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dout must be float32 or bfloat16, got {dout.dtype}")
+    if dout.device != boxes.device:
+        raise ValueError("dout and boxes must share a device")
+
+
+def _split_levels(flat: torch.Tensor, b: int, level_hw, c: int) -> List[torch.Tensor]:
+    """Views ``[B, H_l, W_l, C]`` of maps stored back to back in ``flat``."""
+    out, off = [], 0
+    for h, w in level_hw:
+        out.append(flat[off : off + b * h * w * c].view(b, h, w, c))
+        off += b * h * w * c
+    return out
+
+
+def roi_align_backward_plain(
+    dout: torch.Tensor,
+    boxes: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    image_shape: Sequence[int],
+    denominator: float = 244.0,
+) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``roi_align_backward``: the forward's corner
+    indices and weights, one ``index_add_`` into float32 maps, one cast."""
+    _check_backward_inputs(dout, boxes, level_hw)
+    b, n, p, _, c = dout.shape
+    idx, weights, box_valid = _geometry(level_hw, boxes, p, image_shape, denominator)
+    contrib = dout.to(torch.float32)[..., None, :] * weights[..., None]  # [B, N, P, P, 4, C]
+    contrib = torch.where(box_valid[..., None, None, None, None], contrib, 0.0)
+    total = sum(h * w for h, w in level_hw)
+    rows = idx + (torch.arange(b, device=idx.device) * total)[:, None, None, None, None]
+    acc = torch.zeros((b * total, c), dtype=torch.float32, device=dout.device)
+    acc.index_add_(0, rows.reshape(-1), contrib.reshape(-1, c))
+    acc = acc.view(b, total, c)
+    out, off = [], 0
+    for h, w in level_hw:
+        out.append(acc[:, off : off + h * w].reshape(b, h, w, c).to(dout.dtype))
+        off += h * w
+    return out
+
+
+def roi_align_backward(
+    dout: torch.Tensor,
+    boxes: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    image_shape: Sequence[int],
+    denominator: float = 244.0,
+) -> List[torch.Tensor]:
+    """Gradient of ``roi_align`` with respect to its maps: ``dout [B, N, P,
+    P, C]`` -> one ``[B, H_l, W_l, C]`` map per entry of ``level_hw``, in
+    ``dout``'s dtype. The boxes get no gradient.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    memset, the scatter, and for bf16 one cast, from one call).
+    """
+    _check_backward_inputs(dout, boxes, level_hw)
+    if boxes.device.type == "cpu":
+        return roi_align_backward_plain(dout, boxes, level_hw, image_shape, denominator)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align_backward runs on cpu or cuda, not {boxes.device}")
+    if not (boxes.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("roi_align_backward needs contiguous boxes and dout")
+    if boxes.data_ptr() % 16:
+        raise ValueError("roi_align_backward reads boxes as float4: they must be 16-byte aligned")
+    b, n, p, _, c = dout.shape
+    total = b * c * sum(h * w for h, w in level_hw)
+    acc = torch.empty(total, dtype=torch.float32, device=boxes.device)
+    out = acc if dout.dtype == torch.float32 else torch.empty(total, dtype=dout.dtype, device=boxes.device)
+    if total == 0:
+        return _split_levels(out, b, level_hw, c)
+    hw = list(level_hw) + [(0, 0)] * (MAX_LEVELS - len(level_hw))
+    image_area = np.float32(float(image_shape[0]) * float(image_shape[1]))
+    image_scale = np.float32(denominator) / np.sqrt(image_area)
+    lib = _build.load("roi_align", _SIGNATURES)
+    with torch.cuda.device(boxes.device):  # the launch goes to the current device
+        status = lib.roi_align_backward_launch(
+            acc.data_ptr(), out.data_ptr(), *(h for h, _ in hw), *(w for _, w in hw), len(level_hw),
+            boxes.data_ptr(), b, n, c, p, float(image_scale), _DTYPE_CODES[dout.dtype],
+            dout.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream,
+        )
+    _build.check(lib, status, "roi_align_backward")
+    roi_align_backward.launches += 1
+    return _split_levels(out, b, level_hw, c)
+
+
+roi_align_backward.launches = 0
+
 _SIGNATURES = {
     "roi_align_launch": (
         [ctypes.c_void_p] * MAX_LEVELS
@@ -185,5 +297,12 @@ _SIGNATURES = {
         + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_void_p, ctypes.c_void_p],
         ctypes.c_int,
-    )
+    ),
+    "roi_align_backward_launch": (
+        [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * (2 * MAX_LEVELS + 1)
+        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }

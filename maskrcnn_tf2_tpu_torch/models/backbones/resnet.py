@@ -18,14 +18,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maskrcnn_tf2_tpu_torch.models.layers import SameConv2d, activation, batch_norm, same_pad
+from maskrcnn_tf2_tpu_torch.models.layers import BatchNorm, SameConv2d, activation, same_pad
 
 
 class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__()
         self.conv = SameConv2d(cin, cout, kernel, stride, bias=False)
-        self.bn = batch_norm(cout)
+        self.bn = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))

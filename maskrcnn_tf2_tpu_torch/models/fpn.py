@@ -12,17 +12,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maskrcnn_tf2_tpu_torch.models.layers import SameConv2d
+from maskrcnn_tf2_tpu_torch.models.layers import Conv2d, SameConv2d
 
 
 class FPN(nn.Module):
     def __init__(self, in_channels: Tuple[int, int, int, int], out_channels: int = 256):
         super().__init__()
         c2, c3, c4, c5 = in_channels
-        self.fpn_c5p5 = nn.Conv2d(c5, out_channels, 1)
-        self.fpn_c4p4 = nn.Conv2d(c4, out_channels, 1)
-        self.fpn_c3p3 = nn.Conv2d(c3, out_channels, 1)
-        self.fpn_c2p2 = nn.Conv2d(c2, out_channels, 1)
+        self.fpn_c5p5 = Conv2d(c5, out_channels, 1)
+        self.fpn_c4p4 = Conv2d(c4, out_channels, 1)
+        self.fpn_c3p3 = Conv2d(c3, out_channels, 1)
+        self.fpn_c2p2 = Conv2d(c2, out_channels, 1)
         self.fpn_p2 = SameConv2d(out_channels, out_channels, 3)
         self.fpn_p3 = SameConv2d(out_channels, out_channels, 3)
         self.fpn_p4 = SameConv2d(out_channels, out_channels, 3)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maskrcnn_tf2_tpu_torch.models.layers import SameConv2d
+from maskrcnn_tf2_tpu_torch.models.layers import Conv2d, SameConv2d
 
 
 class RPNHead(nn.Module):
@@ -24,15 +24,16 @@ class RPNHead(nn.Module):
         super().__init__()
         self.k = anchors_per_location
         self.rpn_conv_shared = SameConv2d(in_channels, conv_channels, 3)
-        self.rpn_class_raw = nn.Conv2d(conv_channels, 2 * self.k, 1)
-        self.rpn_bbox_pred = nn.Conv2d(conv_channels, 4 * self.k, 1)
+        self.rpn_class_raw = Conv2d(conv_channels, 2 * self.k, 1)
+        self.rpn_bbox_pred = Conv2d(conv_channels, 4 * self.k, 1)
 
     def forward(self, features: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``[B, C, H_l, W_l]`` levels -> ``(logits [B, A, 2], probs [B, A, 2],
         deltas [B, A, 4])``, all float32."""
         k = self.k
-        w = torch.cat([self.rpn_class_raw.weight, self.rpn_bbox_pred.weight], dim=0)
-        bias = torch.cat([self.rpn_class_raw.bias, self.rpn_bbox_pred.bias], dim=0)
+        dtype = features[0].dtype
+        w = torch.cat([self.rpn_class_raw.weight, self.rpn_bbox_pred.weight], dim=0).to(dtype)
+        bias = torch.cat([self.rpn_class_raw.bias, self.rpn_bbox_pred.bias], dim=0).to(dtype)
         logits_all, bbox_all = [], []
         for f in features:
             b = f.shape[0]

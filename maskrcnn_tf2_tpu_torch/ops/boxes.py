@@ -67,3 +67,31 @@ def overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     area2 = box_area(boxes2)[..., None, :]
     union = area1 + area2 - intersection
     return intersection / torch.clamp(union, min=1e-10)
+
+
+def encode_boxes(boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """``(dy, dx, log dh, log dw)`` targets mapping ``boxes`` to ``gt_boxes``.
+
+    Zero-size boxes are guarded with a 1e-8 floor on heights and widths;
+    callers mask such rows out downstream.
+    """
+    height = boxes[..., 2] - boxes[..., 0]
+    width = boxes[..., 3] - boxes[..., 1]
+    center_y = boxes[..., 0] + 0.5 * height
+    center_x = boxes[..., 1] + 0.5 * width
+
+    gt_height = gt_boxes[..., 2] - gt_boxes[..., 0]
+    gt_width = gt_boxes[..., 3] - gt_boxes[..., 1]
+    gt_center_y = gt_boxes[..., 0] + 0.5 * gt_height
+    gt_center_x = gt_boxes[..., 1] + 0.5 * gt_width
+
+    height = torch.clamp(height, min=1e-8)
+    width = torch.clamp(width, min=1e-8)
+    gt_height = torch.clamp(gt_height, min=1e-8)
+    gt_width = torch.clamp(gt_width, min=1e-8)
+
+    dy = (gt_center_y - center_y) / height
+    dx = (gt_center_x - center_x) / width
+    dh = torch.log(gt_height / height)
+    dw = torch.log(gt_width / width)
+    return torch.stack([dy, dx, dh, dw], dim=-1)

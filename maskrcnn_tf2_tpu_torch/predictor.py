@@ -31,6 +31,7 @@ class Predictor:
         self.config = config
         self.model = MaskRCNN(config, device=device)
         self.model.load_state_dict(state_dict)
+        self.model.cast_for_serving_()
         self.device = self.model.device
 
     @torch.no_grad()

@@ -16,7 +16,9 @@ of module found there:
   and ``num_batches_tracked`` is set to 0.
 
 It raises on a leaf that maps nowhere, on a shape that does not match, and
-on any parameter or buffer of the model that is left unassigned.
+on any parameter or buffer of the model that is left unassigned. With
+``params_only=True`` it converts a ``{"params"}`` tree alone (a gradient
+tree, say) to the model's parameter names and checks only the parameters.
 """
 
 from __future__ import annotations
@@ -54,12 +56,13 @@ def _convert_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str
     raise KeyError(f"no torch counterpart for leaf {name!r} of {type(module).__name__}")
 
 
-def flax_to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert flax ``variables`` to a ``state_dict`` for ``model``."""
-    extra = set(variables) - {"params", "batch_stats"}
+def flax_to_state_dict(variables: Mapping, model: nn.Module, params_only: bool = False) -> Dict[str, torch.Tensor]:
+    """Convert flax ``variables`` to a ``state_dict`` for ``model`` (only its
+    parameters when ``params_only``)."""
+    extra = set(variables) - ({"params"} if params_only else {"params", "batch_stats"})
     if extra:
         raise ValueError(f"unexpected variable collections {sorted(extra)}")
-    target = model.state_dict()
+    target = dict(model.named_parameters()) if params_only else model.state_dict()
     out: Dict[str, torch.Tensor] = {}
 
     def assign(key: str, value: np.ndarray, source: str) -> None:
@@ -90,9 +93,10 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.
         if not isinstance(module_at(path[:-1], source), _BN) or path[-1] not in stats_names:
             raise KeyError(f"no torch counterpart for {source}")
         assign(".".join(path[:-1] + (stats_names[path[-1]],)), value, source)
-    for name, module in model.named_modules():
-        if isinstance(module, _BN) and module.num_batches_tracked is not None:
-            out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    if not params_only:
+        for name, module in model.named_modules():
+            if isinstance(module, _BN) and module.num_batches_tracked is not None:
+                out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
 
     missing = sorted(set(target) - set(out))
     if missing:

@@ -8,7 +8,10 @@ card's machine, which has no JAX:
 
 Tolerances on the card: NMS identical; ROIAlign within 1e-5 * max|feature|
 in float32 (TF32 off) and one bf16 ulp of max|feature| in bf16 (both sum the
-four weighted corners in float32 and round once, in another order).
+four weighted corners in float32 and round once, in another order); the
+ROIAlign backward within 1e-5 * max|plain| in float32 and one bf16 ulp of
+max|plain| in bf16 (both add in float32, the kernel with atomics in an order
+that changes from run to run).
 """
 
 import subprocess
@@ -86,6 +89,25 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert (port_nms_kernel.greedy_nms.launches, port_roi_kernel.roi_align.launches) == before
 
 
+def test_backward_cpu_tensors_take_the_plain_version_without_launching():
+    rs = np.random.RandomState(1)
+    boxes = T(roi_boxes(rs, 2, 16))
+    dout = T(rs.normal(size=(2, 16, 7, 7, 4)).astype(np.float32))
+    before = port_roi_kernel.roi_align_backward.launches
+    got = port_roi_kernel.roi_align_backward(dout, boxes, [(16, 16), (8, 8)], (64, 64))
+    want = port_roi_kernel.roi_align_backward_plain(dout, boxes, [(16, 16), (8, 8)], (64, 64))
+    assert port_roi_kernel.roi_align_backward.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        port_roi_kernel.roi_align_backward(dout[:, :3], boxes, [(16, 16)], (64, 64))
+
+
+def test_nms_kernel_limit_names_the_knobs():
+    port_nms_kernel.check_kernel_limit(3000)  # 60 KB: past 48 KB, by the opt-in
+    with pytest.raises(ValueError, match="post_nms_rois_training"):
+        port_nms_kernel.check_kernel_limit(port_nms_kernel.MAX_KERNEL_LIMIT + 1)
+
+
 def test_wrappers_refuse_other_devices_and_bad_inputs():
     boxes = torch.zeros((1, 8, 4), device="meta")
     with pytest.raises(ValueError):
@@ -107,7 +129,8 @@ def test_default_device_raises_without_a_card():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, maskrcnn_tf2_tpu_torch.predictor, maskrcnn_tf2_tpu_torch.weights;"
+        "import sys, maskrcnn_tf2_tpu_torch.predictor, maskrcnn_tf2_tpu_torch.weights,"
+        " maskrcnn_tf2_tpu_torch.train.train_step, maskrcnn_tf2_tpu_torch.profile_train;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'maskrcnn_tf2_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -160,3 +183,57 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, pool, n):
     scale = max(float(f.abs().max()) for f in feats)
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-8 * scale  # one bf16 ulp
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_nms_kernel_above_48kb_of_shared_memory(cuda):
+    """limit 3000 needs 60 KB of kept boxes: the launcher opts in to Hopper's
+    larger dynamic shared memory."""
+    boxes, scores, _, _, _, _ = nms_case("presorted_6000", np.random.RandomState(3))
+    valid = np.ones(scores.shape, bool)
+    want = port_nms_kernel.greedy_nms_plain(T(boxes), T(valid), 0.7, 3000)
+    got = port_nms_kernel.greedy_nms(T(boxes).to(cuda), T(valid).to(cuda), 0.7, 3000)
+    torch.cuda.synchronize()
+    assert int(want[1].sum()) > 2457  # more kept boxes than fit 48 KB
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", [7, 14])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, pool):
+    rs = np.random.RandomState(pool + 1)
+    level_hw = [(128, 128), (64, 64), (32, 32), (16, 16)]
+    boxes = T(roi_boxes(rs, 2, 200)).to(cuda)
+    dout = T(rs.normal(size=(2, 200, pool, pool, 256)).astype(np.float32)).to(cuda, dtype)
+    before = port_roi_kernel.roi_align_backward.launches
+    got = port_roi_kernel.roi_align_backward(dout, boxes, level_hw, (512, 512))
+    want = port_roi_kernel.roi_align_backward_plain(dout, boxes, level_hw, (512, 512))
+    torch.cuda.synchronize()
+    assert port_roi_kernel.roi_align_backward.launches == before + 1
+    scale = max(float(w.float().abs().max()) for w in want)
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-8 * scale
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= tol
+    # zero-area and padding ROIs (rows 1 and 2) leave the maps untouched
+    empty = torch.zeros_like(dout)
+    empty[:, 1:3] = dout[:, 1:3]
+    assert all(float(g.abs().max()) == 0 for g in port_roi_kernel.roi_align_backward(empty, boxes, level_hw, (512, 512)))
+
+
+@pytest.mark.gpu
+def test_pyramid_roi_align_autograd_on_the_card(cuda):
+    from maskrcnn_tf2_tpu_torch.ops.roi_align import pyramid_roi_align
+
+    rs = np.random.RandomState(4)
+    feats = [T(f).to(cuda, torch.bfloat16).requires_grad_() for f in pyramid(rs, 2, 256, 64)]
+    boxes = T(roi_boxes(rs, 2, 50)).to(cuda)
+    before = (port_roi_kernel.roi_align.launches, port_roi_kernel.roi_align_backward.launches)
+    out = pyramid_roi_align(feats, boxes, 14, (256, 256))
+    grads = torch.autograd.grad(out.float().square().sum(), feats)
+    torch.cuda.synchronize()
+    after = (port_roi_kernel.roi_align.launches, port_roi_kernel.roi_align_backward.launches)
+    assert after == (before[0] + 1, before[1] + 1)
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in grads)

@@ -157,6 +157,8 @@ def test_lecun_init_is_seeded():
 
 
 def test_training_is_not_ported_yet():
+    """Training is ported now (tests/test_torch_port_train_step.py); a
+    training forward without its targets' inputs still refuses to run."""
     m = MaskRCNN(MaskRCNNConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="gt_class_ids, gt_boxes, gt_masks and draws"):
         m(torch.zeros((1, 128, 128, 3)), torch.zeros((1, 15)), train=True)
