@@ -14,10 +14,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                seeded random weights) records the inputs the path hands each
                kernel wrapper.
 4. holds    -- each kernel against its plain version on those inputs (and on
-               edge cases): NMS identical, ROIAlign within 1e-5 * max|feature|
-               in float32 (TF32 off) and one bf16 ulp of max|feature| in bf16.
-               Times come from CUDA events with the L2 cache flushed before
-               each launch.
+               edge cases): NMS identical, also on chains across the scan's
+               64-row chunks and on edge cases of its chunks (N not a multiple
+               of 64, limit reached mid-chunk, N = 1, N < 64, limit > N, an
+               image all invalid); ROIAlign within 1e-5 * max|feature| in
+               float32 (TF32 off) and one bf16 ulp of max|feature| in bf16, at
+               the 16-byte channel width of the path and at the scalar width
+               (C = 36 in bf16, float32 maps 4 bytes off alignment). Times
+               come from CUDA events with the L2 cache flushed before each
+               launch.
 5. serving  -- launch counts set to 0, then 4 requests of 2 uint8 images of
                other sizes than 512; latency, valid proposals and detections,
                peak memory; every kernel must have launched twice a request.
@@ -25,7 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                configuration (batch 2, 2-8 seeded GT boxes per image, 56x56
                mini masks) records the inputs of ``greedy_nms``, ``roi_align``
                and ``roi_align_backward``: one, two and two calls.
-7. holds, backward -- the ROIAlign backward kernel against its plain version
+7. holds, training -- the NMS and ROIAlign forward kernels against their
+               plain versions on the captured training calls (2x6000 -> 2000
+               at 0.7; 7x7 and 14x14 over 2x200 ROIs), timed with their bounds
+               (``train_ms``, ``train_bound_ms``); then the ROIAlign backward
+               kernel against its plain version
                on the captured 7x7 and 14x14 calls (bf16 within one bf16 ulp of
                max|plain|; float32 within 1e-5 * max|plain|, with zero-area,
                full-image and sliver boxes in front, where zero-area ROIs must
@@ -96,12 +105,16 @@ def flagship_config() -> MaskRCNNConfig:
 
 def kernel_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, each one timed on its
-    own with CUDA events after the L2 cache was flushed."""
+    own with CUDA events after the L2 cache was flushed. A ~1 ms sleep kernel
+    runs between the flush and the start event, so the wrapper's host work is
+    enqueued while the card is busy and the events bracket device time only
+    (host work longer than the sleep, as in the plain versions, still counts)."""
     for _ in range(2):
         fn()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)  # clock cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -179,17 +192,10 @@ def capture_inputs(predictor: Predictor, images):
     return calls
 
 
-def chain_case(device):
-    """Staircases of equal boxes, each step overlapping the next above the
-    threshold but not the one after it: greedy order alternates kept and
-    suppressed along each chain, inside and across the kernel's tiles."""
-    rs = np.random.RandomState(SEED + 1)
-    base = rs.uniform(0, 0.6, (200, 2))
-    y1 = (base[:, None, 0] + 0.07 * np.arange(30)[None, :]).reshape(-1)
-    x1 = np.repeat(base[:, 1], 30)
-    boxes = np.stack([y1, x1, y1 + 0.3, x1 + 0.3], -1).astype(np.float32)[None]
-    valid = rs.uniform(size=boxes.shape[:2]) > 0.05
-    return torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
+def roi_like_boxes(rs, n):
+    y1, x1 = rs.uniform(0, 0.7, (2, n))
+    h, w = rs.uniform(0.01, 0.3, (2, n))
+    return np.stack([y1, x1, np.minimum(y1 + h, 1), np.minimum(x1 + w, 1)], -1).astype(np.float32)
 
 
 def edge_boxes(boxes):
@@ -204,11 +210,64 @@ def edge_boxes(boxes):
     return torch.cat([extra[None].expand(b, -1, -1), boxes[:, : boxes.shape[1] - len(extra)]], 1).contiguous()
 
 
-def hold_nms(calls, flush):
-    log("== holds: greedy NMS kernel (csrc/nms.cu) vs greedy_nms_plain")
+def staircases(rs, chains, steps, interleave):
+    """Boxes [chains * steps, 4]: staircases of 0.3-wide boxes stepping 0.07 (each
+    overlaps the next above 0.5, not the one after), chain by chain or
+    interleaved row by row."""
+    base = rs.uniform(0, 0.6, (chains, 2))
+    y1 = base[:, None, 0] + 0.07 * np.arange(steps)[None, :]  # [chains, steps]
+    x1 = np.repeat(base[:, 1:], steps, 1)
+    if interleave:
+        y1, x1 = y1.T, x1.T
+    y1, x1 = y1.reshape(-1), x1.reshape(-1)
+    return np.stack([y1, x1, y1 + 0.3, x1 + 0.3], -1).astype(np.float32)
+
+
+def chain_case(device):
+    """Staircases of equal boxes, each step overlapping the next above the
+    threshold but not the one after it: greedy order alternates kept and
+    suppressed along each chain, inside and across the scan's chunks."""
+    rs = np.random.RandomState(SEED + 1)
+    boxes = staircases(rs, 200, 30, False)[None]
+    valid = rs.uniform(size=boxes.shape[:2]) > 0.05
+    return torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
+
+
+def nms_edge_cases(device):
+    """(name, boxes, valid, iou, limit) aimed at the scan's 64-row chunks."""
+    rs = np.random.RandomState(SEED + 7)
+
+    def case(name, boxes, limit, thr=0.5, valid=None):
+        boxes = torch.from_numpy(np.ascontiguousarray(boxes, np.float32)).to(device)
+        valid = torch.ones(boxes.shape[:2], dtype=torch.bool) if valid is None else torch.from_numpy(valid)
+        return name, boxes, valid.to(device), thr, limit
+
+    # the limit filled in the middle of a chunk, with kept rows after it there
+    mid = np.stack([roi_like_boxes(rs, 1000) for _ in range(2)])
+    pos, ok = nms_kernel.greedy_nms_plain(torch.from_numpy(mid), torch.ones((2, 1000), dtype=torch.bool), 0.5, 1000)
+    kept = pos[0][ok[0]].tolist()
+    stop = next(k for k in range(1, len(kept)) if kept[k] // 64 == kept[k - 1] // 64 >= 2
+                and 16 <= kept[k - 1] % 64 <= 48)
+    half_invalid = np.ones((2, 700), bool)
+    half_invalid[1] = False
+    return [
+        case("N 1000, not a multiple of 64", mid, 1000),
+        case(f"limit {stop} mid-chunk (row {kept[stop - 1]} of chunk {kept[stop - 1] // 64})", mid, stop),
+        case("3 interleaved chains of 200 across 10 chunks", staircases(rs, 3, 200, True)[None], 1000),
+        case("N 1", roi_like_boxes(rs, 2)[:, None], 1),
+        case("N 1, limit 3", roi_like_boxes(rs, 2)[:, None], 3),
+        case("N 50 < 64, limit 100", roi_like_boxes(rs, 50)[None], 100, 0.3),
+        case("N 65", roi_like_boxes(rs, 65)[None], 100, 0.3),
+        case("N 300, limit 1000 > N", roi_like_boxes(rs, 300)[None], 1000),
+        case("image 1 all invalid", np.stack([roi_like_boxes(rs, 700) for _ in range(2)]), 100, 0.5, half_invalid),
+    ]
+
+
+def hold_nms(calls, flush, extra=()):
+    """Kernel identical to plain on each call (timed, with its bound) and on
+    each extra case (not timed); the summed times and bounds."""
     timings = []
-    cases = [("path", *call[0]) for call in calls] + [
-        ("chains", *chain_case(calls[0][0][0].device), 0.5, 1000)]
+    cases = [("path", *call[0]) for call in calls] + list(extra)
     for name, boxes_s, valid_s, thr, limit in cases:
         got = nms_kernel.greedy_nms(boxes_s, valid_s, thr, limit)
         want = nms_kernel.greedy_nms_plain(boxes_s, valid_s, thr, limit)
@@ -227,17 +286,19 @@ def hold_nms(calls, flush):
             timings.append((k, p, bt, ot))
             line += f"; kernel {k:.4f} ms, plain {p:.3f} ms, bound {max(bt, ot) * 1e3:.3f} us"
         log(line)
-    log("  library: no single PyTorch call computes greedy NMS (torchvision is absent)")
     return summarize(0.0, timings)  # any differing index or flag raised above
 
 
 def hold_roi_align(calls, flush):
-    log("== holds: pyramid ROIAlign kernel (csrc/roi_align.cu) vs roi_align_plain")
+    """Kernel within one bf16 ulp of plain on each call, and within 1e-5 in
+    float32 on the same maps with edge boxes in front; timed with its bound.
+    Returns the error and the summed times and bounds."""
     err, timings = 0.0, []
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 comparisons in full float32
     torch.backends.cudnn.allow_tf32 = False
     for args, _ in calls:
         features, boxes, pool, image_shape = args[:4]
+        features = [f.detach() for f in features]  # the training step's maps require grad
         scale = max(float(f.abs().max()) for f in features)
         # bf16, the path's dtype, on the path's boxes
         got = roi_kernel.roi_align(features, boxes, pool, image_shape)
@@ -262,11 +323,36 @@ def hold_roi_align(calls, flush):
         bt, ot = roi_bound(features, boxes, pool)
         timings.append((k, p, bt, ot))
         err = max(err, e16)
+        width = roi_kernel.vector_width(features, got)
         log(f"  {pool}x{pool}: boxes {tuple(boxes.shape)} maps {[tuple(f.shape) for f in features]} "
-            f"{features[0].dtype}: max err bf16 {e16:.3g}, f32 {e32:.3g} (max|f| {scale:.3g}); "
-            f"kernel {k:.4f} ms, plain {p:.3f} ms, bound {max(bt, ot) * 1e3:.3f} us")
-    log("  library: no single PyTorch call computes pyramid ROIAlign (torchvision is absent)")
+            f"{features[0].dtype}, {width} channels a thread: max err bf16 {e16:.3g}, f32 {e32:.3g} "
+            f"(max|f| {scale:.3g}); kernel {k:.4f} ms, plain {p:.3f} ms, bound {max(bt, ot) * 1e3:.3f} us")
     return summarize(err, timings)
+
+
+def hold_roi_scalar_width(device):
+    """The forward kernel's scalar width against the plain version: C = 36 in
+    bf16 (72-byte pixels) and float32 maps that start 4 bytes past a 16-byte
+    boundary."""
+    rs = np.random.RandomState(SEED + 8)
+    boxes = torch.from_numpy(roi_like_boxes(rs, 600).reshape(2, 300, 4)).to(device)
+    maps = [rs.normal(size=(2, 512 // s, 512 // s, 36)).astype(np.float32) for s in (4, 8, 16, 32)]
+    bf16 = [torch.from_numpy(f).to(device, torch.bfloat16) for f in maps]
+    unaligned = []
+    for f in maps:
+        buf = torch.empty(f.size + 1, device=device)
+        unaligned.append(buf[1:].view(f.shape).copy_(torch.from_numpy(f)))
+    for name, feats, tol in (("C 36 bf16", bf16, 2.0**-8), ("C 36 f32 off by 4 bytes", unaligned, 1e-5)):
+        for pool in (7, 14):
+            got = roi_kernel.roi_align(feats, boxes, pool, (512, 512))
+            want = roi_kernel.roi_align_plain(feats, boxes, pool, (512, 512))
+            torch.cuda.synchronize()
+            width = roi_kernel.vector_width(feats, got)
+            scale = max(float(f.abs().max()) for f in feats)
+            e = float((got.float() - want.float()).abs().max())
+            if width != 1 or not e <= tol * scale:
+                raise AssertionError(f"ROIAlign scalar width ({name}, {pool}x{pool}): width {width}, error {e}")
+            log(f"  scalar width, {name}, {pool}x{pool} over {tuple(boxes.shape)}: max err {e:.3g}")
 
 
 def check_results(results, images, cfg):
@@ -403,16 +489,14 @@ def hold_roi_backward(calls, flush):
     big = torch.from_numpy(rs.normal(size=(1, 200, 14, 14, 256)).astype(np.float32)).to(dout.device)
     e_big, _ = hold_backward_case("1152x1152", big, boxes, level_hw, (1152, 1152))
     e_big16, _ = hold_backward_case("1152x1152", big.to(torch.bfloat16), boxes, level_hw, (1152, 1152))
+    k = kernel_ms(lambda: roi_kernel.roi_align_backward(big, boxes, level_hw, (1152, 1152)), 10, flush)
+    pl = kernel_ms(lambda: roi_kernel.roi_align_backward_plain(big, boxes, level_hw, (1152, 1152)), 3, flush)
+    bound = max(bwd_bound(big, boxes, level_hw))
     log(f"  pyramid of {mib:.1f} MiB f32 per image (1152x1152, batch 1, 14x14 over 200 ROIs): "
-        f"max err f32 {e_big:.3g}, bf16 {e_big16:.3g}")
+        f"max err f32 {e_big:.3g}, bf16 {e_big16:.3g}; f32 kernel {k:.4f} ms, plain {pl:.3f} ms, "
+        f"bound {bound * 1e3:.3f} us")
     log("  library: no single PyTorch call computes the ROIAlign backward (torchvision is absent)")
     return summarize(err, timings)
-
-
-def roi_like_boxes(rs, n):
-    y1, x1 = rs.uniform(0, 0.7, (2, n))
-    h, w = rs.uniform(0.01, 0.3, (2, n))
-    return np.stack([y1, x1, np.minimum(y1 + h, 1), np.minimum(x1 + w, 1)], -1).astype(np.float32)
 
 
 def _tiny_train_losses_and_grads(cfg, batch, draws, dev):
@@ -529,8 +613,13 @@ def main() -> None:
     log(f"== capture: warm-up request done at {time.time() - t0:.1f} s")
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=device)  # > 50 MB L2
-    nms_stats = hold_nms(calls["nms"], flush)
+    log("== holds: greedy NMS kernel (csrc/nms.cu) vs greedy_nms_plain")
+    nms_stats = hold_nms(calls["nms"], flush, [("chains", *chain_case(device), 0.5, 1000)] + nms_edge_cases(device))
+    log("  library: no single PyTorch call computes greedy NMS (torchvision is absent)")
+    log("== holds: pyramid ROIAlign kernel (csrc/roi_align.cu) vs roi_align_plain")
     roi_stats = hold_roi_align(calls["roi_align"], flush)
+    hold_roi_scalar_width(device)
+    log("  library: no single PyTorch call computes pyramid ROIAlign (torchvision is absent)")
     del calls
     tiny_cross_check(device)
 
@@ -573,6 +662,9 @@ def main() -> None:
     batch = synthetic_batch(tcfg, 2, SEED + 6, device)
     state, _, tcalls = capture_train(state, step, batch, gen)
     log(f"== train capture: one step done at {time.time() - t0:.1f} s")
+    log("== holds, training inputs: greedy NMS and pyramid ROIAlign forward kernels vs their plain versions")
+    nms_train = hold_nms(tcalls["nms"], flush)
+    roi_train = hold_roi_align(tcalls["roi_align"], flush)
     bwd_stats = hold_roi_backward(tcalls["roi_align_backward"], flush)
     del tcalls, flush
     tiny_train_cross_check(device)
@@ -581,21 +673,23 @@ def main() -> None:
     kernels = [
         dict(name="greedy_nms", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/nms.cu",
              replaces="maskrcnn_tf2_tpu/kernels/nms_pallas.py:29", launches=launches["nms"],
-             train_launches=train_launches["nms"], **nms_stats, library_ms=None),
+             train_launches=train_launches["nms"], **nms_stats, library_ms=None,
+             train_ms=nms_train["ms"], train_bound_ms=nms_train["bound_ms"]),
         dict(name="pyramid_roi_align", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/roi_align.cu",
              replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:484",
              also_replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:224",
              launches=launches["roi_align"], train_launches=train_launches["roi_align"],
-             **roi_stats, library_ms=None),
+             **roi_stats, library_ms=None, train_ms=roi_train["ms"], train_bound_ms=roi_train["bound_ms"]),
         dict(name="pyramid_roi_align_backward", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/roi_align.cu",
              replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:967",
              also_replaces=["maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:865",
                             "maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:1316"],
              launches=train_launches["roi_align_backward"], **bwd_stats, library_ms=None),
     ]
-    log(f"== done at {time.time() - t0:.1f} s; forward kernels' times per served batch of 2 images, the "
-        f"backward's per training step of 2 images (both call sites summed); launches: serving's 4 "
-        f"requests, train_launches and the backward's: the 5 training steps")
+    log(f"== done at {time.time() - t0:.1f} s; forward kernels' times per served batch of 2 images "
+        f"(ms) and per training step (train_ms), the backward's per training step of 2 images (both "
+        f"call sites summed); launches: serving's 4 requests, train_launches and the backward's: the 5 "
+        f"training steps")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Exact greedy NMS over score-sorted boxes: the CUDA kernel and its plain version.
 
-``greedy_nms`` launches ``csrc/nms.cu`` for CUDA tensors (one launch for the
-whole batch, one thread block per image) and runs ``greedy_nms_plain`` for
-CPU tensors. Both return the compacted contract of
-``ops.nms.non_max_suppression``: the positions of the first ``limit`` kept
-boxes on the sorted axis, in order, zero-padded, with a validity mask.
+``greedy_nms`` launches ``csrc/nms.cu`` for CUDA tensors (one launcher call
+for the whole batch: an IoU bitmask kernel over the card, then a scan kernel
+with one block per image) and runs ``greedy_nms_plain`` for CPU tensors.
+Both return the compacted contract of ``ops.nms.non_max_suppression``: the
+positions of the first ``limit`` kept boxes on the sorted axis, in order,
+zero-padded, with a validity mask.
 
 Suppression is ``inter / max(union, 1e-10) > iou_threshold`` with
 ``box_area``'s clamps, exactly as ``ops.boxes.overlaps`` computes it.
@@ -21,10 +22,9 @@ from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.ops.boxes import overlaps
 
 TILE = 512  # rows per step of the plain version's tile-sequential sweep
-# A Hopper block has 232,448 bytes of shared memory: the kernel's tile arrays
-# take 6,148 and each kept box 20 (its float4 and its area), past 48 KB by the
-# launcher's opt-in to the larger dynamic size.
-MAX_KERNEL_LIMIT = (232448 - 6148) // 20
+# The scan keeps a bit per box in a 4 KB shared-memory bitset (kMaxWords in
+# csrc/nms.cu); the bitmask workspace is then at most 128 MiB per image.
+MAX_KERNEL_BOXES = 512 * 64
 
 
 def _check_inputs(boxes_s: torch.Tensor, valid_s: torch.Tensor, limit: int) -> None:
@@ -40,15 +40,20 @@ def _check_inputs(boxes_s: torch.Tensor, valid_s: torch.Tensor, limit: int) -> N
         raise ValueError(f"limit must be >= 0, got {limit}")
 
 
-def check_kernel_limit(limit: int) -> None:
-    """Raise, naming the configuration knobs, if ``limit`` kept boxes do not
-    fit the kernel's shared memory."""
-    if limit > MAX_KERNEL_LIMIT:
+def check_kernel_boxes(n: int) -> None:
+    """Raise, naming the configuration knobs, if ``n`` boxes per image do not
+    fit the kernel's bitset."""
+    if n > MAX_KERNEL_BOXES:
         raise ValueError(
-            f"greedy_nms keeps at most {MAX_KERNEL_LIMIT} boxes per image on the card "
-            f"(limit {limit} x 20 bytes of shared memory per block); lower "
-            "post_nms_rois_training, post_nms_rois_inference or detection_max_instances"
+            f"greedy_nms takes at most {MAX_KERNEL_BOXES} boxes per image on the card, got {n} "
+            "(one bit per box in shared memory, an n x n bitmask in device memory); lower "
+            "pre_nms_limit (proposals) or post_nms_rois_inference (detections)"
         )
+
+
+def mask_words(n: int) -> int:
+    """64-bit words per row of the kernel's IoU bitmask."""
+    return (n + 63) // 64
 
 
 def _compact(keep: torch.Tensor, limit: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,12 +134,15 @@ def greedy_nms(
         raise ValueError("greedy_nms needs contiguous boxes and valid")
     if boxes_s.data_ptr() % 16:
         raise ValueError("greedy_nms reads boxes as float4: they must be 16-byte aligned")
-    check_kernel_limit(limit)
     b, n, _ = boxes_s.shape
+    check_kernel_boxes(n)
     positions = torch.empty((b, limit), dtype=torch.int32, device=boxes_s.device)
     out_valid = torch.empty((b, limit), dtype=torch.bool, device=boxes_s.device)
     if b == 0 or limit == 0:
         return positions, out_valid
+    # bit j of word w of row i: box 64 * w + j comes after i and overlaps it
+    # above the threshold; only the words the scan reads are written
+    mask = torch.empty((b, n, mask_words(n)), dtype=torch.int64, device=boxes_s.device)
     lib = _build.load("nms", _SIGNATURES)
     with torch.cuda.device(boxes_s.device):  # the launch goes to the current device
         status = lib.greedy_nms_launch(
@@ -144,6 +152,7 @@ def greedy_nms(
             n,
             float(iou_threshold),
             limit,
+            mask.data_ptr(),
             positions.data_ptr(),
             out_valid.data_ptr(),
             torch.cuda.current_stream(boxes_s.device).cuda_stream,
@@ -161,7 +170,7 @@ _SIGNATURES = {
         [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
         ],
         ctypes.c_int,
     )

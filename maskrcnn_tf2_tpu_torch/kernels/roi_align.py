@@ -2,11 +2,12 @@
 versions.
 
 ``roi_align`` launches ``csrc/roi_align.cu``'s forward kernel for CUDA
-tensors (one launch for the batch, one thread block per ROI) and runs
-``roi_align_plain`` for CPU tensors. Each ROI is pooled from the FPN level the
-reference's formula assigns it, with ``crop_and_resize`` bilinear samples
-whose grid endpoints sit on the box corners scaled by ``(H_l - 1, W_l - 1)``;
-corners clamp to the map and zero-area boxes pool zeros
+tensors (one launch for the batch; a block pools a range of bin rows of one
+ROI, threads over 16-byte channel vectors where ``vector_width`` allows them)
+and runs ``roi_align_plain`` for CPU tensors. Each ROI is pooled from the FPN
+level the reference's formula assigns it, with ``crop_and_resize`` bilinear
+samples whose grid endpoints sit on the box corners scaled by ``(H_l - 1,
+W_l - 1)``; corners clamp to the map and zero-area boxes pool zeros
 (``maskrcnn_tf2_tpu/ops/roi_align.py``). The output is ``[B, N, P, P, C]`` in
 ROI order, in the features' dtype; both versions sum the four weighted
 corners in float32 and round once.
@@ -29,7 +30,17 @@ import torch
 from maskrcnn_tf2_tpu_torch.kernels import _build
 
 MAX_LEVELS = 4
+MAX_POOL = 64  # kMaxPool in csrc/roi_align.cu: the block's geometry arrays
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def vector_width(features: Sequence[torch.Tensor], out: torch.Tensor) -> int:
+    """Channels per thread of the forward kernel: a 16-byte vector (8 bf16 or
+    4 float32) where the channel count and every map and output pointer are
+    16-byte multiples, else 1, the scalar width."""
+    item = out.element_size()
+    ok = (out.shape[-1] * item) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (*features, out))
+    return 16 // item if ok else 1
 
 
 def roi_level_assignment(
@@ -167,8 +178,8 @@ def roi_align(
         raise ValueError("roi_align needs contiguous boxes and [B, H, W, C] maps")
     if boxes.data_ptr() % 16:
         raise ValueError("roi_align reads boxes as float4: they must be 16-byte aligned")
-    if pool_size < 1:
-        raise ValueError(f"pool_size must be >= 1, got {pool_size}")
+    if not 1 <= pool_size <= MAX_POOL:
+        raise ValueError(f"pool_size must be in [1, {MAX_POOL}], got {pool_size}")
     b, n, _ = boxes.shape
     c = features[0].shape[-1]
     out = torch.empty((b, n, pool_size, pool_size, c), dtype=features[0].dtype, device=boxes.device)
@@ -185,7 +196,7 @@ def roi_align(
         status = lib.roi_align_launch(
             *ptrs, *hs, *ws, len(features),
             boxes.data_ptr(), b, n, c, pool_size, float(image_scale),
-            _DTYPE_CODES[features[0].dtype], out.data_ptr(),
+            _DTYPE_CODES[features[0].dtype], int(vector_width(features, out) > 1), out.data_ptr(),
             torch.cuda.current_stream(boxes.device).cuda_stream,
         )
     _build.check(lib, status, "roi_align")
@@ -294,7 +305,7 @@ _SIGNATURES = {
     "roi_align_launch": (
         [ctypes.c_void_p] * MAX_LEVELS
         + [ctypes.c_int] * (2 * MAX_LEVELS + 1)
-        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p, ctypes.c_void_p],
         ctypes.c_int,
     ),

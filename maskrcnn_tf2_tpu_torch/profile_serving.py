@@ -11,7 +11,8 @@ and reports, with the card's name and power limit:
 - one whole ``Predictor.detect`` request on the host clock, split into
   preprocessing, forward + fetch, and unmold;
 - a ``torch.profiler`` table of device time by kernel for one forward, and
-  the share of the two hand-written kernels and of idle device time.
+  the share of the hand-written kernels (NMS: mask and scan; ROIAlign) and
+  of idle device time.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
-KERNEL_NAMES = ("greedy_nms_kernel", "roi_align_kernel")
+KERNEL_NAMES = ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel")
 
 
 def _image(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:

@@ -28,7 +28,8 @@ from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.train.synthetic import synthetic_batch
 from maskrcnn_tf2_tpu_torch.train.train_step import create_train_state, make_train_step
 
-KERNEL_NAMES = ("greedy_nms_kernel", "roi_align_kernel", "roi_align_backward_kernel", "cast_to_bf16")
+KERNEL_NAMES = ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel", "roi_align_backward_kernel",
+                "cast_to_bf16")
 
 
 def main() -> None:

@@ -24,6 +24,7 @@ import torch
 from maskrcnn_tf2_tpu_torch.device import resolve_device
 from maskrcnn_tf2_tpu_torch.kernels import nms as port_nms_kernel
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as port_roi_kernel
+from maskrcnn_tf2_tpu_torch.ops.boxes import overlaps
 
 from torch_port_helpers import nms_case, pyramid, random_boxes, roi_boxes
 
@@ -65,6 +66,63 @@ def test_plain_nms_matches_sequential_greedy(thr):
     assert pos[0][ok[0]].tolist() == sequential_greedy(boxes[0], valid[0], thr)
 
 
+def sorted_nms_case(name, seed=7):
+    """An ``nms_case`` sorted by score (stable), with an all-True mask where it has none."""
+    boxes, scores, valid, limit, thr, _ = nms_case(name, np.random.RandomState(seed))
+    order = np.argsort(-scores, axis=1, kind="stable")
+    boxes_s = np.ascontiguousarray(np.take_along_axis(boxes, order[..., None], 1))
+    valid_s = np.ones(scores.shape, bool) if valid is None else np.take_along_axis(valid, order, 1)
+    return boxes_s, valid_s, limit, thr
+
+
+def pack_bits(bits):
+    """[..., 64 * W] bools -> [..., W] uint64, bit j of word w = element 64 * w + j."""
+    return np.packbits(bits.reshape(*bits.shape[:-1], -1, 64), axis=-1, bitorder="little").view("<u8")[..., 0]
+
+
+def bitmask_scan_model(boxes, valid, thr, limit):
+    """csrc/nms.cu's algorithm for one image, in numpy: the row-major IoU
+    bitmask (bit j of row i's word w: box 64 * w + j comes after i and overlaps
+    it above thr), then the scan over 64-row chunks with a removed bitset that
+    starts with the invalid rows and the padding, settling each chunk's chain
+    row by row from its diagonal word, stopping at ``limit``, and ORing the kept
+    rows' words for later chunks into the bitset. Returns the kept positions."""
+    n = len(boxes)
+    words = port_nms_kernel.mask_words(n)
+    over = np.zeros((n, 64 * words), bool)
+    for start in range(0, n, 512):
+        rows = T(boxes[None, start : start + 512])
+        over[start : start + 512, :n] = (overlaps(rows, T(boxes[None]))[0] > thr).numpy()
+    over &= np.arange(64 * words)[None, :] > np.arange(n)[:, None]
+    mask = pack_bits(over)  # [n, words]
+    removed = pack_bits(np.concatenate([~valid, np.ones(64 * words - n, bool)]))
+    kept = []
+    for c in range(words):
+        rem, chunk_kept = int(removed[c]), []
+        for r in range(64):
+            if len(kept) == limit:
+                return kept
+            if not (rem >> r) & 1:
+                kept.append(64 * c + r)
+                chunk_kept.append(64 * c + r)
+                rem |= int(mask[64 * c + r, c])
+        if chunk_kept and c + 1 < words:
+            removed[c + 1 :] |= np.bitwise_or.reduce(mask[chunk_kept, c + 1 :], axis=0)
+    return kept
+
+
+@pytest.mark.parametrize("case", ["presorted_6000", "unsorted_class_offsets", "duplicate_chains",
+                                  "all_invalid_row", "fewer_than_limit", "chunk_chains", "limit_mid_chunk",
+                                  "single_box"])
+def test_bitmask_scan_model_matches_plain(case):
+    """The kernel's chunked algorithm, modelled on the CPU, keeps exactly what
+    the plain version keeps, in order, up to the limit."""
+    boxes_s, valid_s, limit, thr = sorted_nms_case(case)
+    pos, ok = port_nms_kernel.greedy_nms_plain(T(boxes_s), T(valid_s), thr, limit)
+    for b in range(len(boxes_s)):
+        assert bitmask_scan_model(boxes_s[b], valid_s[b], thr, limit) == pos[b][ok[b]].tolist()
+
+
 def test_plain_roi_align_on_a_constant_map():
     rs = np.random.RandomState(0)
     feats = [np.full((2, s, s, 3), 2.5, np.float32) for s in (32, 16, 8, 4)]
@@ -102,10 +160,22 @@ def test_backward_cpu_tensors_take_the_plain_version_without_launching():
         port_roi_kernel.roi_align_backward(dout[:, :3], boxes, [(16, 16)], (64, 64))
 
 
-def test_nms_kernel_limit_names_the_knobs():
-    port_nms_kernel.check_kernel_limit(3000)  # 60 KB: past 48 KB, by the opt-in
-    with pytest.raises(ValueError, match="post_nms_rois_training"):
-        port_nms_kernel.check_kernel_limit(port_nms_kernel.MAX_KERNEL_LIMIT + 1)
+def test_nms_kernel_box_count_names_the_knobs():
+    port_nms_kernel.check_kernel_boxes(port_nms_kernel.MAX_KERNEL_BOXES)  # 512 words of bitset
+    assert port_nms_kernel.mask_words(6000) == 94 and port_nms_kernel.mask_words(64) == 1
+    with pytest.raises(ValueError, match="pre_nms_limit"):
+        port_nms_kernel.check_kernel_boxes(port_nms_kernel.MAX_KERNEL_BOXES + 1)
+
+
+@pytest.mark.parametrize("dtype,c,offset,width", [
+    (torch.bfloat16, 256, 0, 8), (torch.float32, 256, 0, 4), (torch.bfloat16, 36, 0, 1),
+    (torch.float32, 36, 0, 4), (torch.float32, 256, 1, 1),
+])
+def test_roi_align_vector_width(dtype, c, offset, width):
+    """16-byte channel vectors only where C and every pointer allow them."""
+    maps = [torch.empty(offset + 2 * s * s * c, dtype=dtype)[offset:].view(2, s, s, c) for s in (16, 8)]
+    out = torch.empty((2, 5, 7, 7, c), dtype=dtype)
+    assert port_roi_kernel.vector_width(maps, out) == width
 
 
 def test_wrappers_refuse_other_devices_and_bad_inputs():
@@ -153,12 +223,10 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["presorted_6000", "unsorted_class_offsets", "duplicate_chains", "all_invalid_row"])
+@pytest.mark.parametrize("case", ["presorted_6000", "unsorted_class_offsets", "duplicate_chains", "all_invalid_row",
+                                  "fewer_than_limit", "chunk_chains", "limit_mid_chunk", "single_box"])
 def test_nms_kernel_matches_plain(cuda, case):
-    boxes, scores, valid, limit, thr, _ = nms_case(case, np.random.RandomState(7))
-    order = np.argsort(-scores, axis=1, kind="stable")
-    boxes_s = np.ascontiguousarray(np.take_along_axis(boxes, order[..., None], 1))
-    valid_s = np.ones(scores.shape, bool) if valid is None else np.take_along_axis(valid, order, 1)
+    boxes_s, valid_s, limit, thr = sorted_nms_case(case)
     want = port_nms_kernel.greedy_nms_plain(T(boxes_s), T(valid_s), thr, limit)
     before = port_nms_kernel.greedy_nms.launches
     got = port_nms_kernel.greedy_nms(T(boxes_s).to(cuda), T(valid_s).to(cuda), thr, limit)
@@ -170,10 +238,11 @@ def test_nms_kernel_matches_plain(cuda, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("pool,n", [(7, 1000), (14, 100)])
-def test_roi_align_kernel_matches_plain(cuda, dtype, pool, n):
+@pytest.mark.parametrize("pool,n,c", [(7, 1000, 256), (14, 100, 256), (7, 300, 36), (14, 50, 36)])
+def test_roi_align_kernel_matches_plain(cuda, dtype, pool, n, c):
+    """C = 256 runs the 16-byte width; C = 36 the scalar width in bf16 (72-byte pixels)."""
     rs = np.random.RandomState(pool)
-    feats = [T(f).to(cuda, dtype) for f in pyramid(rs, 2, 512, 256)]
+    feats = [T(f).to(cuda, dtype) for f in pyramid(rs, 2, 512, c)]
     boxes = T(roi_boxes(rs, 2, n)).to(cuda)
     before = port_roi_kernel.roi_align.launches
     got = port_roi_kernel.roi_align(feats, boxes, pool, (512, 512))
@@ -186,17 +255,32 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, pool, n):
 
 
 @pytest.mark.gpu
-def test_nms_kernel_above_48kb_of_shared_memory(cuda):
-    """limit 3000 needs 60 KB of kept boxes: the launcher opts in to Hopper's
-    larger dynamic shared memory."""
+def test_nms_kernel_keeps_3000_boxes(cuda):
+    """limit 3000 of 6000: the scan runs through most of its 94 chunks before it stops."""
     boxes, scores, _, _, _, _ = nms_case("presorted_6000", np.random.RandomState(3))
     valid = np.ones(scores.shape, bool)
     want = port_nms_kernel.greedy_nms_plain(T(boxes), T(valid), 0.7, 3000)
     got = port_nms_kernel.greedy_nms(T(boxes).to(cuda), T(valid).to(cuda), 0.7, 3000)
     torch.cuda.synchronize()
-    assert int(want[1].sum()) > 2457  # more kept boxes than fit 48 KB
+    assert int(want[1].sum()) > 2457
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_roi_align_kernel_scalar_width_on_unaligned_maps(cuda):
+    """float32 maps that start 4 bytes past a 16-byte boundary take the scalar width."""
+    rs = np.random.RandomState(5)
+    feats = []
+    for f in pyramid(rs, 2, 256, 64):
+        buf = torch.empty(f.size + 1, device=cuda)
+        feats.append(buf[1:].view(f.shape).copy_(T(f)))
+    boxes = T(roi_boxes(rs, 2, 100)).to(cuda)
+    out = torch.empty((2, 100, 7, 7, 64), device=cuda)
+    assert port_roi_kernel.vector_width(feats, out) == 1
+    got = port_roi_kernel.roi_align(feats, boxes, 7, (256, 256))
+    want = port_roi_kernel.roi_align_plain(feats, boxes, 7, (256, 256))
+    assert float((got - want).abs().max()) <= 1e-5 * max(float(f.abs().max()) for f in feats)
 
 
 @pytest.mark.gpu

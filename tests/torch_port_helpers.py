@@ -63,6 +63,25 @@ def nms_case(name, rs):
         boxes = random_boxes(rs, 50)[None]
         scores = rs.uniform(size=(1, 50)).astype(np.float32)
         return boxes, scores, None, 100, 0.3, False
+    if name == "chunk_chains":
+        # three staircases of 200 steps interleaved row by row (presorted), so
+        # each chain alternates kept/suppressed across many 64-row chunks
+        base = rs.uniform(0, 0.6, (3, 2)).astype(np.float32)
+        steps = np.arange(200, dtype=np.float32)
+        y1 = (base[None, :, 0] + 0.07 * steps[:, None]).reshape(-1)
+        x1 = np.tile(base[:, 1], 200)
+        boxes = np.stack([y1, x1, y1 + 0.3, x1 + 0.3], -1).astype(np.float32)[None]
+        scores = np.linspace(1, 0, boxes.shape[1], dtype=np.float32)[None]
+        valid = rs.uniform(size=scores.shape) > 0.05
+        return boxes, scores, valid, 1000, 0.5, True
+    if name == "limit_mid_chunk":
+        # N = 1000 (not a multiple of 64), the limit filled well inside the run
+        boxes = np.stack([random_boxes(rs, 1000) for _ in range(2)])
+        scores = -np.sort(-rs.uniform(size=(2, 1000)), axis=1).astype(np.float32)
+        return boxes, scores, None, 77, 0.5, True
+    if name == "single_box":
+        boxes = random_boxes(rs, 1)[None]
+        return boxes, np.ones((1, 1), np.float32), None, 5, 0.5, True
     raise KeyError(name)
 
 
