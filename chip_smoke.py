@@ -38,8 +38,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                on the captured 7x7 and 14x14 calls (bf16 within one bf16 ulp of
                max|plain|; float32 within 1e-5 * max|plain|, with zero-area,
                full-image and sliver boxes in front, where zero-area ROIs must
-               leave the maps untouched) and on a float32 pyramid over 88 MiB
-               (the TPU's second backward kernel's regime); times as in 4.
+               leave the maps untouched), on boxes that straddle the kernel's
+               tiles and on elongated ones, at the scalar width (C = 36, both
+               dtypes) and on a float32 pyramid over 88 MiB (the TPU's second
+               backward kernel's regime); every hold also launches twice and
+               wants the same bits, and wants exact zeros, in maps from
+               ``torch.empty`` over poisoned memory, wherever the plain maps
+               are zero; the ROIs per tile and terms per pixel of the captured
+               calls are printed; times as in 4.
 8. tiny train cross-check -- one training step of a small float32 model,
                card against CPU, same weights and draws: losses within 1e-4
                relative with the batch norms on batch statistics and on their
@@ -410,10 +416,20 @@ def flagship_train_config() -> MaskRCNNConfig:
                           compute_dtype="bfloat16", batch_size=2)
 
 
-def capture_train(state, step, batch, gen):
-    """One training step through the real path, recording the inputs of each
-    kernel wrapper: one NMS call, two ROIAlign forwards, two backwards."""
+def capture_train(device, steps_before=0):
+    """The flagship's training state from the seed, after ``steps_before``
+    training steps, and one more step through the real path, recording the
+    inputs of each kernel wrapper: one NMS call, two ROIAlign forwards, two
+    backwards. Returns ``(state, step, batch, gen, calls)``."""
+    tcfg = flagship_train_config()
+    gen = torch.Generator().manual_seed(SEED)
+    state = create_train_state(tcfg, gen, device=device)
+    step = make_train_step(tcfg)
+    batch = synthetic_batch(tcfg, 2, SEED + 6, device)
+    for _ in range(steps_before):
+        state, _ = step(state, batch, rng=gen)
     calls = {"nms": [], "roi_align": [], "roi_align_backward": []}
+    cotangents = []
 
     def recorder(fn, key):
         def wrapped(*args, **kwargs):
@@ -422,16 +438,24 @@ def capture_train(state, step, batch, gen):
 
         return wrapped
 
+    autograd_backward = roi_op.PyramidRoIAlign.backward
+
+    def backward(ctx, dout):
+        cotangents.append(f"{tuple(dout.shape)} strides {dout.stride()} contiguous {dout.is_contiguous()}")
+        return autograd_backward(ctx, dout)
+
     with mock.patch.object(nms_op, "greedy_nms", recorder(nms_kernel.greedy_nms, "nms")), \
             mock.patch.object(roi_op, "roi_align", recorder(roi_kernel.roi_align, "roi_align")), \
             mock.patch.object(roi_op, "roi_align_backward",
-                              recorder(roi_kernel.roi_align_backward, "roi_align_backward")):
-        state, losses = step(state, batch, rng=gen)
+                              recorder(roi_kernel.roi_align_backward, "roi_align_backward")), \
+            mock.patch.object(roi_op.PyramidRoIAlign, "backward", staticmethod(backward)):
+        state, _ = step(state, batch, rng=gen)
     torch.cuda.synchronize()
+    log("  cotangents as autograd hands them to PyramidRoIAlign.backward: " + "; ".join(cotangents))
     counts = {k: len(v) for k, v in calls.items()}
     if counts != {"nms": 1, "roi_align": 2, "roi_align_backward": 2}:
         raise RuntimeError(f"a training step called the wrappers {counts} times; expected 1, 2, 2")
-    return state, losses, calls
+    return state, step, batch, gen, calls
 
 
 def bwd_bound(dout, boxes, level_hw):
@@ -445,16 +469,76 @@ def bwd_bound(dout, boxes, level_hw):
 
 
 def hold_backward_case(name, dout, boxes, level_hw, image_shape):
-    """Kernel against plain: one bf16 ulp of max|plain| in bf16, 1e-5 * max|plain| in float32."""
-    got = roi_kernel.roi_align_backward(dout, boxes, level_hw, image_shape)
+    """Kernel against plain: one bf16 ulp of max|plain| in bf16, 1e-5 * max|plain|
+    in float32. Two launches give the same bits. The kernel's maps come from
+    ``torch.empty`` over memory just filled with NaNs, and are exactly zero
+    wherever the plain maps are (no ROI reaches there)."""
     want = roi_kernel.roi_align_backward_plain(dout, boxes, level_hw, image_shape)
+    poison = torch.full((sum(w.numel() for w in want),), float("nan"), dtype=dout.dtype, device=dout.device)
+    del poison  # the allocator hands this block to the next torch.empty of its size
+    got = roi_kernel.roi_align_backward(dout, boxes, level_hw, image_shape)
+    again = roi_kernel.roi_align_backward(dout, boxes, level_hw, image_shape)
     torch.cuda.synchronize()
     scale = max(float(w.float().abs().max()) for w in want)
     err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
     tol = 1e-5 * scale if dout.dtype == torch.float32 else 2.0**-8 * scale
     if not err <= tol:
         raise AssertionError(f"ROIAlign backward ({name}, {dout.dtype}) error {err} > {tol}")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"ROIAlign backward ({name}, {dout.dtype}): two launches differ")
+    if not all(bool((g[w == 0] == 0).all()) for g, w in zip(got, want)):
+        raise AssertionError(f"ROIAlign backward ({name}, {dout.dtype}): a pixel no ROI reaches is not zero")
     return err, scale
+
+
+def backward_work(boxes, level_hw, p, image_shape):
+    """What the owner-computes kernel finds on these boxes: the ROIs each of
+    its tiles keeps (level and footprint filter) and the corner terms each
+    pixel sums, as distributions."""
+    th, tw = roi_kernel.BACKWARD_TILE
+    idx, _, valid = roi_kernel._geometry(level_hw, boxes.cpu(), p, image_shape, 244.0)
+    b = idx.shape[0]
+    total = sum(h * w for h, w in level_hw)
+    terms = torch.bincount((idx + torch.arange(b)[:, None, None, None, None] * total)[valid].reshape(-1),
+                           minlength=b * total).float()
+    offsets = np.cumsum([0] + [h * w for h, w in level_hw])
+    tiles = [torch.zeros((b, -(-h // th), -(-w // tw))) for h, w in level_hw]
+    first, last = idx[:, :, 0, 0, 0], idx[:, :, -1, -1, 3]  # corner 00 of the first sample, 11 of the last
+    for img, roi in valid.nonzero().tolist():
+        level = int(np.searchsorted(offsets, int(first[img, roi]), side="right")) - 1
+        w = level_hw[level][1]
+        lo, hi = int(first[img, roi]) - offsets[level], int(last[img, roi]) - offsets[level]
+        tiles[level][img, lo // w // th : hi // w // th + 1, lo % w // tw : hi % w // tw + 1] += 1
+    per_tile = torch.cat([t.reshape(-1) for t in tiles])
+
+    def dist(v):
+        q = torch.quantile(v, torch.tensor([0.5, 0.9, 0.99])).tolist()
+        return (f"mean {float(v.mean()):.2f}, median {q[0]:.0f}, 90th {q[1]:.0f}, 99th {q[2]:.0f}, "
+                f"max {float(v.max()):.0f}, zero {float((v == 0).float().mean()):.3f}")
+
+    by_level = ", ".join(f"{float(t.mean()):.2f}/{float(t.max()):.0f}" for t in tiles)
+    return (f"ROIs per {th}x{tw} tile ({len(per_tile)} tiles): {dist(per_tile)}; mean/max by level {by_level}; "
+            f"corner terms per pixel: {dist(terms)}")
+
+
+def backward_shape_cases(device):
+    """(name, dout, boxes): boxes aimed at the kernel's tiles on the flagship's
+    512x512 pyramid (samples straddling tile borders in both axes; 512x12-pixel
+    boxes, the finest level, 128 pixels one way) at C = 256, and ROI-like boxes
+    at C = 36, the scalar width in bf16; both dtypes each."""
+    rs = np.random.RandomState(SEED + 9)
+    lo, hi = 2.5 / 127, 9.5 / 127  # pixels 2.5 .. 9.5 of the 128x128 map
+    aimed = np.array([[lo, lo, hi, hi], [lo, 0.0, hi, 6.0 / 127], [0.0, 0.5, 1.0, 0.5 + 12 / 512],
+                      [0.25, 0.0, 0.25 + 12 / 512, 1.0]], np.float32)
+    boxes = np.stack([np.concatenate([aimed, roi_like_boxes(rs, 60)]) for _ in range(2)])
+    cases = []
+    for name, bx, p, c in (("tile-straddling and elongated boxes", boxes, 14, 256),
+                           ("C 36, 7x7", roi_like_boxes(rs, 600).reshape(2, 300, 4), 7, 36),
+                           ("C 36, 14x14", roi_like_boxes(rs, 600).reshape(2, 300, 4), 14, 36)):
+        dout = torch.from_numpy(rs.normal(size=bx.shape[:2] + (p, p, c)).astype(np.float32)).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((name, dout.to(dtype), torch.from_numpy(bx).to(device)))
+    return cases
 
 
 def hold_roi_backward(calls, flush):
@@ -480,6 +564,11 @@ def hold_roi_backward(calls, flush):
         log(f"  {p}x{p}: dout {tuple(dout.shape)} {dout.dtype} maps {list(level_hw)}: max err bf16 {e16:.3g} "
             f"(max|grad| {scale:.3g}), f32 {e32:.3g}; kernel {k:.4f} ms, plain {pl:.3f} ms, "
             f"bound {max(bt, ot) * 1e3:.3f} us")
+        log(f"  {p}x{p}: {backward_work(boxes, level_hw, p, image_shape)}")
+    level_hw = [(512 // s, 512 // s) for s in (4, 8, 16, 32)]
+    for name, dout, boxes in backward_shape_cases(dout.device):
+        e, scale = hold_backward_case(name, dout, boxes, level_hw, (512, 512))
+        log(f"  {name}: dout {tuple(dout.shape)} {dout.dtype}: max err {e:.3g} (max|grad| {scale:.3g})")
     # the TPU falls back to its read-modify-write kernel above 88 MiB of float32
     # pyramid per image; 1024x1024 is 85 MiB, so 1152x1152 (108 MiB)
     rs = np.random.RandomState(SEED + 3)
@@ -655,12 +744,7 @@ def main() -> None:
     del predictor, out
     torch.cuda.empty_cache()
 
-    tcfg = flagship_train_config()
-    gen = torch.Generator().manual_seed(SEED)
-    state = create_train_state(tcfg, gen, device=device)
-    step = make_train_step(tcfg)
-    batch = synthetic_batch(tcfg, 2, SEED + 6, device)
-    state, _, tcalls = capture_train(state, step, batch, gen)
+    state, step, batch, gen, tcalls = capture_train(device)
     log(f"== train capture: one step done at {time.time() - t0:.1f} s")
     log("== holds, training inputs: greedy NMS and pyramid ROIAlign forward kernels vs their plain versions")
     nms_train = hold_nms(tcalls["nms"], flush)

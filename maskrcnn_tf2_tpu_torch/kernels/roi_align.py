@@ -12,11 +12,15 @@ W_l - 1)``; corners clamp to the map and zero-area boxes pool zeros
 ROI order, in the features' dtype; both versions sum the four weighted
 corners in float32 and round once.
 
-``roi_align_backward`` is its transpose: each ROI's pooled cotangent is
-scatter-added through the same four weights into float32 maps ``[B, H_l,
-W_l, C]``, then cast once to the features' dtype. The CUDA kernel adds with
-atomics, so its sums vary in order from run to run; ``roi_align_backward_plain``
-adds with ``index_add_``.
+``roi_align_backward`` is its transpose: each sample's pooled cotangent,
+times the same four weights, is added to the sample's four corner pixels in
+maps ``[B, H_l, W_l, C]``; sums in float32, one rounding to the cotangent's
+dtype. The CUDA kernel gathers (owner computes): a block owns a tile of one
+level's map, a warp a pixel, a lane a channel vector, and each output value is
+summed in a register in the fixed order ROI, sample row, sample column,
+corner, and written once: no float32 scratch, no atomics, the same bits from
+run to run. ``roi_align_backward_plain`` scatters with ``index_add_``, which
+on the CPU adds in that same order.
 """
 
 from __future__ import annotations
@@ -31,13 +35,15 @@ from maskrcnn_tf2_tpu_torch.kernels import _build
 
 MAX_LEVELS = 4
 MAX_POOL = 64  # kMaxPool in csrc/roi_align.cu: the block's geometry arrays
+BACKWARD_TILE = (4, 4)  # kTileH, kTileW in csrc/roi_align.cu: the pixels a backward block owns
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def vector_width(features: Sequence[torch.Tensor], out: torch.Tensor) -> int:
-    """Channels per thread of the forward kernel: a 16-byte vector (8 bf16 or
-    4 float32) where the channel count and every map and output pointer are
-    16-byte multiples, else 1, the scalar width."""
+    """Channels per thread of the kernels: a 16-byte vector (8 bf16 or 4
+    float32) where the channel count (``out``'s last dimension) and the
+    pointers of ``features`` and ``out`` are 16-byte multiples, else 1, the
+    scalar width."""
     item = out.element_size()
     ok = (out.shape[-1] * item) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (*features, out))
     return 16 // item if ok else 1
@@ -61,6 +67,14 @@ def roi_level_assignment(
     lvl = torch.clamp(lvl, 2, 2 + num_levels - 1) - 2
     valid = (h > 0) & (w > 0)
     return torch.where(valid, lvl, torch.zeros_like(lvl))
+
+
+def check_pool_size(pool_size: int) -> None:
+    """The kernels keep a ROI's ``pool_size`` row and column corners in shared
+    arrays of ``MAX_POOL`` entries."""
+    if not 1 <= pool_size <= MAX_POOL:
+        raise ValueError(f"the ROIAlign kernels take pool_size / mask_pool_size in [1, {MAX_POOL}], "
+                         f"got {pool_size}")
 
 
 def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor) -> None:
@@ -178,8 +192,7 @@ def roi_align(
         raise ValueError("roi_align needs contiguous boxes and [B, H, W, C] maps")
     if boxes.data_ptr() % 16:
         raise ValueError("roi_align reads boxes as float4: they must be 16-byte aligned")
-    if not 1 <= pool_size <= MAX_POOL:
-        raise ValueError(f"pool_size must be in [1, {MAX_POOL}], got {pool_size}")
+    check_pool_size(pool_size)
     b, n, _ = boxes.shape
     c = features[0].shape[-1]
     out = torch.empty((b, n, pool_size, pool_size, c), dtype=features[0].dtype, device=boxes.device)
@@ -266,8 +279,10 @@ def roi_align_backward(
     P, C]`` -> one ``[B, H_l, W_l, C]`` map per entry of ``level_hw``, in
     ``dout``'s dtype. The boxes get no gradient.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    memset, the scatter, and for bf16 one cast, from one call).
+    CPU tensors take the plain version; CUDA tensors launch the
+    owner-computes kernel, one launch for all levels, whatever the shape: it
+    writes every element of the maps (zeros where no ROI reaches), so they
+    come from ``torch.empty`` and there is no scratch.
     """
     _check_backward_inputs(dout, boxes, level_hw)
     if boxes.device.type == "cpu":
@@ -279,10 +294,9 @@ def roi_align_backward(
     if boxes.data_ptr() % 16:
         raise ValueError("roi_align_backward reads boxes as float4: they must be 16-byte aligned")
     b, n, p, _, c = dout.shape
-    total = b * c * sum(h * w for h, w in level_hw)
-    acc = torch.empty(total, dtype=torch.float32, device=boxes.device)
-    out = acc if dout.dtype == torch.float32 else torch.empty(total, dtype=dout.dtype, device=boxes.device)
-    if total == 0:
+    check_pool_size(p)
+    out = torch.empty(b * c * sum(h * w for h, w in level_hw), dtype=dout.dtype, device=boxes.device)
+    if out.numel() == 0:
         return _split_levels(out, b, level_hw, c)
     hw = list(level_hw) + [(0, 0)] * (MAX_LEVELS - len(level_hw))
     image_area = np.float32(float(image_shape[0]) * float(image_shape[1]))
@@ -290,9 +304,10 @@ def roi_align_backward(
     lib = _build.load("roi_align", _SIGNATURES)
     with torch.cuda.device(boxes.device):  # the launch goes to the current device
         status = lib.roi_align_backward_launch(
-            acc.data_ptr(), out.data_ptr(), *(h for h, _ in hw), *(w for _, w in hw), len(level_hw),
+            out.data_ptr(), *(h for h, _ in hw), *(w for _, w in hw), len(level_hw),
             boxes.data_ptr(), b, n, c, p, float(image_scale), _DTYPE_CODES[dout.dtype],
-            dout.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream,
+            int(vector_width([out], dout) > 1), dout.data_ptr(),
+            torch.cuda.current_stream(boxes.device).cuda_stream,
         )
     _build.check(lib, status, "roi_align_backward")
     roi_align_backward.launches += 1
@@ -310,9 +325,9 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "roi_align_backward_launch": (
-        [ctypes.c_void_p] * 2
+        [ctypes.c_void_p]
         + [ctypes.c_int] * (2 * MAX_LEVELS + 1)
-        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p, ctypes.c_void_p],
         ctypes.c_int,
     ),

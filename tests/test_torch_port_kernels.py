@@ -10,8 +10,11 @@ Tolerances on the card: NMS identical; ROIAlign within 1e-5 * max|feature|
 in float32 (TF32 off) and one bf16 ulp of max|feature| in bf16 (both sum the
 four weighted corners in float32 and round once, in another order); the
 ROIAlign backward within 1e-5 * max|plain| in float32 and one bf16 ulp of
-max|plain| in bf16 (both add in float32, the kernel with atomics in an order
-that changes from run to run).
+max|plain| in bf16 (both add in float32; the kernel in the fixed order ROI,
+sample row, sample column, corner, the same bits from run to run, the plain
+version's ``index_add_`` on the card with atomics in an order that changes).
+On the CPU ``index_add_`` adds in the kernel's order, so the model of the
+kernel's algorithm below equals the plain version bit for bit.
 """
 
 import subprocess
@@ -26,7 +29,7 @@ from maskrcnn_tf2_tpu_torch.kernels import nms as port_nms_kernel
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as port_roi_kernel
 from maskrcnn_tf2_tpu_torch.ops.boxes import overlaps
 
-from torch_port_helpers import nms_case, pyramid, random_boxes, roi_boxes
+from torch_port_helpers import BACKWARD_CASES, backward_case, nms_case, pyramid, random_boxes, roi_boxes
 
 T = torch.from_numpy
 
@@ -121,6 +124,121 @@ def test_bitmask_scan_model_matches_plain(case):
     pos, ok = port_nms_kernel.greedy_nms_plain(T(boxes_s), T(valid_s), thr, limit)
     for b in range(len(boxes_s)):
         assert bitmask_scan_model(boxes_s[b], valid_s[b], thr, limit) == pos[b][ok[b]].tolist()
+
+
+def axis_corners(lo, hi, p, dim):
+    """float32 ``c0``, ``c1`` (ints) and ``t`` of the P samples along one axis of
+    a box, with csrc/roi_align.cu's expressions (``sample_coord``, ``corners``)."""
+    dim_m1 = np.float32(dim - 1)
+    if p > 1:
+        frac = np.arange(p, dtype=np.float32) / np.float32(p - 1)
+        coord = (lo + (hi - lo) * frac) * dim_m1
+    else:
+        coord = np.full(1, (np.float32(0.5) * (lo + hi)) * dim_m1, np.float32)
+    c0 = np.minimum(np.maximum(np.floor(coord), np.float32(0)), dim_m1)
+    c1 = np.minimum(np.maximum(c0 + np.float32(1), np.float32(0)), dim_m1)
+    t = np.minimum(np.maximum(coord - c0, np.float32(0)), np.float32(1))
+    return c0.astype(np.int64), c1.astype(np.int64), t
+
+
+def sample_range(c0, c1, q):
+    """[lo, end) of the samples with a corner on pixel ``q`` (empty: lo >= end)."""
+    hit = np.nonzero((c0 == q) | (c1 == q))[0]
+    return (int(hit[0]), int(hit[-1]) + 1) if len(hit) else (len(c0), 0)
+
+
+def owner_computes_model(dout, boxes, level_hw, image_shape, tile=(4, 4), chunk=256, round_rois=32):
+    """csrc/roi_align.cu's backward in numpy float32. Every (image, level, tile)
+    is one block: it filters the image's boxes ``chunk`` at a time by level and
+    by the footprint [c0 of the first sample, c1 of the last] against its tile,
+    takes the kept ROIs ``round_rois`` at a time, finds per tile row and column
+    the contiguous range of samples with a corner there, and sums each pixel on
+    its own, in the order ROI, sample row, sample column, corner, adding
+    ``g * (wy * wx)`` for the corners that are this pixel."""
+    b, n, p, _, c = dout.shape
+    area = float(image_shape[0]) * float(image_shape[1])
+    level_of = port_roi_kernel.roi_level_assignment(T(boxes), area, len(level_hw)).numpy()
+    one = np.float32(1)
+    maps = []
+    for level, (h, w) in enumerate(level_hw):
+        out = np.zeros((b, h, w, c), np.float32)
+        for img, ty0, tx0 in np.ndindex(b, -(-h // tile[0]), -(-w // tile[1])):
+            ty0, tx0 = ty0 * tile[0], tx0 * tile[1]
+            acc = np.zeros(tile + (c,), np.float32)
+            for first in range(0, n, chunk):
+                kept = []
+                for roi in range(first, min(first + chunk, n)):
+                    y1, x1, y2, x2 = boxes[img, roi]
+                    if not (y2 > y1 and x2 > x1) or level_of[img, roi] != level:
+                        continue
+                    cy0, cy1, _ = axis_corners(y1, y2, p, h)
+                    cx0, cx1, _ = axis_corners(x1, x2, p, w)
+                    if (cy0[0] < ty0 + tile[0] and cy1[-1] >= ty0
+                            and cx0[0] < tx0 + tile[1] and cx1[-1] >= tx0):
+                        kept.append(roi)
+                for r0 in range(0, len(kept), round_rois):
+                    entries = []
+                    for roi in kept[r0 : r0 + round_rois]:
+                        y1, x1, y2, x2 = boxes[img, roi]
+                        ys, xs = axis_corners(y1, y2, p, h), axis_corners(x1, x2, p, w)
+                        rows = [sample_range(ys[0], ys[1], ty0 + j) for j in range(tile[0])]
+                        cols = [sample_range(xs[0], xs[1], tx0 + j) for j in range(tile[1])]
+                        entries.append((roi, ys, xs, rows, cols))
+                    for py, px in np.ndindex(*tile):
+                        y, x = ty0 + py, tx0 + px
+                        if y >= h or x >= w:
+                            continue
+                        for roi, (cy0, cy1, ty), (cx0, cx1, tx), rows, cols in entries:
+                            for iy in range(*rows[py]):
+                                for ix in range(*cols[px]):
+                                    g = dout[img, roi, iy, ix]
+                                    if cy0[iy] == y and cx0[ix] == x:
+                                        acc[py, px] = acc[py, px] + g * ((one - ty[iy]) * (one - tx[ix]))
+                                    if cy0[iy] == y and cx1[ix] == x:
+                                        acc[py, px] = acc[py, px] + g * ((one - ty[iy]) * tx[ix])
+                                    if cy1[iy] == y and cx0[ix] == x:
+                                        acc[py, px] = acc[py, px] + g * (ty[iy] * (one - tx[ix]))
+                                    if cy1[iy] == y and cx1[ix] == x:
+                                        acc[py, px] = acc[py, px] + g * (ty[iy] * tx[ix])
+            out[img, ty0 : ty0 + tile[0], tx0 : tx0 + tile[1]] = acc[: h - ty0, : w - tx0]
+        maps.append(out)
+    return maps
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_owner_computes_model_matches_plain_backward(case):
+    """The kernel's algorithm, modelled on the CPU, equals the plain version
+    bit for bit in float32: tiles, the per-tile ROI filter, the per-axis sample
+    ranges and the fixed add order lose and reorder nothing. ``index_add_`` on
+    the CPU adds in index order, which is the model's order for every pixel."""
+    dout, boxes, level_hw, image_shape, options = backward_case(case)
+    got = owner_computes_model(dout, boxes, level_hw, image_shape, **options)
+    want = port_roi_kernel.roi_align_backward_plain(T(dout), T(boxes), level_hw, image_shape)
+    assert len(got) == len(level_hw)
+    for g, w in zip(got, want):
+        assert g.shape == tuple(w.shape)
+        assert np.array_equal(g, w.numpy())
+    if boxes.shape[1]:
+        assert any(w.abs().max() > 0 for w in want)
+
+
+def test_owner_computes_model_rounds_once_to_bf16():
+    """bf16 cotangents: float32 sums of the widened values, one rounding."""
+    dout, boxes, level_hw, image_shape, options = backward_case("rois_7x7")
+    dout16 = T(dout).to(torch.bfloat16)
+    got = owner_computes_model(dout16.float().numpy(), boxes, level_hw, image_shape, **options)
+    want = port_roi_kernel.roi_align_backward_plain(dout16, T(boxes), level_hw, image_shape)
+    for g, w in zip(got, want):
+        assert w.dtype == torch.bfloat16 and torch.equal(T(g).to(torch.bfloat16), w)
+
+
+def test_roi_align_kernels_pool_size_names_the_knobs():
+    port_roi_kernel.check_pool_size(1)
+    port_roi_kernel.check_pool_size(port_roi_kernel.MAX_POOL)
+    for bad in (0, port_roi_kernel.MAX_POOL + 1):
+        with pytest.raises(ValueError, match="pool_size / mask_pool_size"):
+            port_roi_kernel.check_pool_size(bad)
+
 
 
 def test_plain_roi_align_on_a_constant_map():
@@ -283,6 +401,33 @@ def test_roi_align_kernel_scalar_width_on_unaligned_maps(cuda):
     assert float((got - want).abs().max()) <= 1e-5 * max(float(f.abs().max()) for f in feats)
 
 
+def poison_free_memory(numel, dtype, device):
+    """Leave NaNs in the block the allocator hands out next, so that an output
+    from ``torch.empty`` shows every element its kernel did not write."""
+    junk = torch.full((numel,), float("nan"), dtype=dtype, device=device)
+    del junk
+
+
+def hold_backward_on_the_card(dout, boxes, level_hw, image_shape):
+    """Kernel against plain at the card's tolerances; two launches bit-equal;
+    where the plain maps are zero (no ROI reaches) the kernel's are exactly zero."""
+    want = port_roi_kernel.roi_align_backward_plain(dout, boxes, level_hw, image_shape)
+    poison_free_memory(sum(w.numel() for w in want), dout.dtype, dout.device)
+    before = port_roi_kernel.roi_align_backward.launches
+    got = port_roi_kernel.roi_align_backward(dout, boxes, level_hw, image_shape)
+    again = port_roi_kernel.roi_align_backward(dout, boxes, level_hw, image_shape)
+    torch.cuda.synchronize()
+    assert port_roi_kernel.roi_align_backward.launches == before + 2
+    scale = max([float(w.float().abs().max()) for w in want if w.numel()] + [0.0])
+    tol = 1e-5 * scale if dout.dtype == torch.float32 else 2.0**-8 * scale
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dout.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        if w.numel():
+            assert float((g.float() - w.float()).abs().max()) <= tol
+            assert bool((g[w == 0] == 0).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pool", [7, 14])
@@ -291,20 +436,32 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype, pool):
     level_hw = [(128, 128), (64, 64), (32, 32), (16, 16)]
     boxes = T(roi_boxes(rs, 2, 200)).to(cuda)
     dout = T(rs.normal(size=(2, 200, pool, pool, 256)).astype(np.float32)).to(cuda, dtype)
-    before = port_roi_kernel.roi_align_backward.launches
-    got = port_roi_kernel.roi_align_backward(dout, boxes, level_hw, (512, 512))
-    want = port_roi_kernel.roi_align_backward_plain(dout, boxes, level_hw, (512, 512))
-    torch.cuda.synchronize()
-    assert port_roi_kernel.roi_align_backward.launches == before + 1
-    scale = max(float(w.float().abs().max()) for w in want)
-    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-8 * scale
-    for g, w in zip(got, want):
-        assert g.dtype == dtype and g.shape == w.shape
-        assert float((g.float() - w.float()).abs().max()) <= tol
+    hold_backward_on_the_card(dout, boxes, level_hw, (512, 512))
     # zero-area and padding ROIs (rows 1 and 2) leave the maps untouched
     empty = torch.zeros_like(dout)
     empty[:, 1:3] = dout[:, 1:3]
     assert all(float(g.abs().max()) == 0 for g in port_roi_kernel.roi_align_backward(empty, boxes, level_hw, (512, 512)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_roi_align_backward_kernel_on_the_model_cases(cuda, dtype, case):
+    """Tile-straddling and elongated boxes, edge boxes, a 2x2 level, P = 1,
+    C = 36 (the scalar width in bf16), ragged tiles, N = 0."""
+    dout, boxes, level_hw, image_shape, _ = backward_case(case)
+    hold_backward_on_the_card(T(dout).to(cuda, dtype), T(boxes).to(cuda), level_hw, image_shape)
+
+
+@pytest.mark.gpu
+def test_roi_align_backward_kernel_matches_its_model(cuda):
+    """float32 on the card against the CPU model of the same algorithm: the
+    same sums in the same order, so the same bits."""
+    dout, boxes, level_hw, image_shape, _ = backward_case("rois_14x14")
+    got = port_roi_kernel.roi_align_backward(T(dout).to(cuda), T(boxes).to(cuda), level_hw, image_shape)
+    want = owner_computes_model(dout, boxes, level_hw, image_shape)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.cpu().numpy(), w)
 
 
 @pytest.mark.gpu

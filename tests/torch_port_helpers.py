@@ -99,3 +99,63 @@ def roi_boxes(rs, b, n):
     boxes[:, 4] = [0.5, 0.0, 0.5005, 1.0]  # extreme aspect: wide and flat
     boxes[:, 5] = [0.999, 0.999, 1.0, 1.0]  # tiny, at the far corner
     return boxes
+
+
+def backward_case(name, seed=11):
+    """``(dout [B, N, P, P, C] float32, boxes [B, N, 4], level_hw, image_shape,
+    model options)`` for the ROIAlign backward. The options (``tile``, ``chunk``,
+    ``round_rois``) size the CPU model of the kernel's algorithm; the kernel's
+    own are 4x4 pixels, 256 boxes and 32 ROIs."""
+    rs = np.random.RandomState(seed)
+
+    def levels(size):
+        return [(size // s, size // s) for s in (4, 8, 16, 32)]
+
+    def case(boxes, p, c, level_hw, size, **options):
+        boxes = np.ascontiguousarray(boxes, np.float32)
+        dout = rs.normal(size=boxes.shape[:2] + (p, p, c)).astype(np.float32)
+        return dout, boxes, level_hw, (size, size), options
+
+    if name == "rois_7x7":
+        return case(roi_boxes(rs, 2, 24), 7, 8, levels(128), 128)
+    if name == "rois_14x14":
+        return case(roi_boxes(rs, 2, 20), 14, 4, levels(128), 128)
+    if name == "edge_boxes":
+        # roi_boxes' first six (full image, zero height, padding, slivers, far
+        # corner), boxes that reach out of the map, and a zero-width box
+        boxes = roi_boxes(rs, 1, 10)
+        boxes[0, 6] = [-0.2, -0.1, 0.3, 0.4]
+        boxes[0, 7] = [0.8, 0.7, 1.3, 1.2]
+        boxes[0, 8] = [-0.5, -0.5, 1.5, 1.5]
+        boxes[0, 9] = [0.2, 0.4, 0.7, 0.4]
+        return case(boxes, 7, 4, levels(128), 128)
+    if name == "straddles_tiles":
+        # pixels 2.5 .. 9.5 of the finest 64x64 map, both axes: tiles 0, 1 and 2
+        lo, hi = 2.5 / 63, 9.5 / 63
+        return case([[[lo, lo, hi, hi], [lo, 0.0, hi, 6.0 / 63]]], 14, 4, levels(256), 256)
+    if name == "elongated":
+        # 512x12 pixels: the finest level, 128 pixels one way and 3 the other
+        return case([[[0.0, 0.5, 1.0, 0.5 + 12 / 512], [0.25, 0.0, 0.25 + 12 / 512, 1.0]]], 7, 2,
+                    levels(512), 512)
+    if name == "coarsest_2x2":
+        return case(roi_boxes(rs, 2, 12), 7, 4, levels(64), 64)
+    if name == "pool_1":
+        return case(roi_boxes(rs, 2, 16), 1, 4, levels(128), 128)
+    if name == "channels_36":
+        return case(roi_boxes(rs, 1, 12), 7, 36, levels(128), 128)
+    if name == "ragged_tiles":
+        # 4x4 tiles over maps of 10, 5, 3 and 2 pixels a side
+        return case(roi_boxes(rs, 2, 16), 7, 4, [(10, 10), (5, 5), (3, 3), (2, 2)], 40)
+    if name == "odd_tile_shape":
+        return case(roi_boxes(rs, 1, 16), 7, 4, levels(128), 128, tile=(3, 5))
+    if name == "no_rois":
+        return case(np.zeros((2, 0, 4)), 7, 4, levels(64), 64)
+    if name == "chunks_and_rounds":
+        # 40 overlapping ROIs through chunks of 16 boxes and rounds of 3 ROIs
+        boxes = np.clip(random_boxes(rs, 40, lo=0.2, hi=0.5), 0.0, 1.0)[None]
+        return case(boxes, 7, 4, levels(64), 64, chunk=16, round_rois=3)
+    raise KeyError(name)
+
+
+BACKWARD_CASES = ["rois_7x7", "rois_14x14", "edge_boxes", "straddles_tiles", "elongated", "coarsest_2x2",
+                  "pool_1", "channels_36", "ragged_tiles", "odd_tile_shape", "no_rois", "chunks_and_rounds"]
