@@ -55,15 +55,36 @@ Phases, in order; any failure raises and the script exits non-zero:
                losses, ``grad_finite`` 1, parameters changed, each step one NMS,
                two forward and two backward ROIAlign launches; median step time
                over steps 2-5 and peak memory.
-10. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+10. train_model -- the loop a user runs, at the flagship's widths (ResNet-50-FPN,
+               512x512, bf16, batch 2, 2000 proposals, 200 ROIs per image)
+               with 4 classes from a dataset: 12 + 4 synthetic shapes images
+               written as a COCO directory (JPEG, RLE) and read back through
+               ``CocoDataset``, device augmentation on (flip, zoom-out 0.25,
+               photometric 0.2), a sample cache and checkpoints in a temporary
+               directory; 2 epochs of 3 steps with validation. Holds: (a)
+               launch counts set to 0, then exactly steps x (1, 2, 2) plus eval
+               steps x (1, 2, 0) of (NMS, ROIAlign forward, backward); (b)
+               finite losses and moved weights; (c) a best-only checkpoint on
+               disk; (d) a SIGTERM sent from the metric writer mid-epoch
+               leaves a preemption checkpoint, and resume runs to the end; (e)
+               a run stopped at the epoch boundary resumes with the step
+               count, the LR and the plateau state of the unbroken run. Prints
+               the loader's images/s alone on the host, train_model's
+               images/s, the share of the loop's time spent waiting on the
+               loader and peak memory, each with the card line.
+11. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -71,6 +92,8 @@ import numpy as np
 import torch
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
+from maskrcnn_tf2_tpu_torch.data.synthetic import SyntheticShapesDataset
 from maskrcnn_tf2_tpu_torch.export.inference import process_input
 from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.kernels import nms as nms_kernel
@@ -80,7 +103,9 @@ from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
-from maskrcnn_tf2_tpu_torch.train.synthetic import smooth_image, synthetic_batch
+from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
+from maskrcnn_tf2_tpu_torch.train.loop import train_model
+from maskrcnn_tf2_tpu_torch.train.synthetic import shapes_coco_datasets, smooth_image, synthetic_batch
 from maskrcnn_tf2_tpu_torch.train.train_step import _loss, create_train_state, make_train_step
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
@@ -678,6 +703,169 @@ def run_training(state, step, batch, gen, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train_model from a dataset
+# ---------------------------------------------------------------------------
+
+
+def launch_counts():
+    return (nms_kernel.greedy_nms.launches, roi_kernel.roi_align.launches, roi_kernel.roi_align_backward.launches)
+
+
+def zero_launch_counts():
+    nms_kernel.greedy_nms.launches = 0
+    roi_kernel.roi_align.launches = 0
+    roi_kernel.roi_align_backward.launches = 0
+
+
+class Stop(Exception):
+    """Ends a run at the first step of its second epoch, as a crash would."""
+
+
+def shapes_datasets(root):
+    """12 training and 4 validation images of 512x512 synthetic shapes, through
+    a COCO directory when Pillow is there to write the JPEGs."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        log("  Pillow is absent: training from the in-memory synthetic set, not from files")
+        sets = []
+        for n, seed in ((12, SEED + 10), (4, SEED + 11)):
+            ds = SyntheticShapesDataset()
+            ds.load_shapes(n, 512, 512, max_shapes=6, seed=seed)
+            ds.prepare()
+            sets.append(ds)
+        return sets
+    sets = shapes_coco_datasets(root, (12, 4), 512, SEED + 10)
+    log(f"  dataset: {len(sets[0])} + {len(sets[1])} images of 512x512 shapes written as COCO (JPEG, RLE) "
+        f"under a temporary directory and read back through CocoDataset")
+    return sets
+
+
+def run_train_model(device, card):
+    """Phase 10 (see the module's docstring). Returns the launch counts of the
+    main run."""
+    log("== train_model: ResNet-50-FPN, 512x512, bf16, batch 2, 4 classes from the dataset, device augmentation, "
+        "2 epochs of 3 steps with validation")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_model_")
+    try:
+        train, val = shapes_datasets(os.path.join(root, "coco"))
+        cfg = flagship_train_config().replace(
+            num_classes=train.num_classes, epochs=2, log_per_steps=1, augment_on_device=True,
+            augment_scale_jitter=0.25, augment_photometric=0.2, reduce_lr_patience=1, reduce_lr_factor=0.5,
+            sample_cache_dir=os.path.join(root, "cache"), checkpoints_dir=os.path.join(root, "ckpt"))
+        steps = 3
+
+        # the loader alone on the host: decoding, resizing, mini masks, collation
+        start = time.perf_counter()
+        n_images = sum(len(b["images"]) for b in DataLoader(train, cfg.replace(sample_cache_dir=None)).epoch())
+        loader_ips = n_images / (time.perf_counter() - start)
+
+        def run(base, **kw):
+            state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+            history = []
+            state = train_model(cfg, train, val, state=state, checkpoint_base=os.path.join(root, base),
+                                steps_per_epoch=steps, rng_seed=SEED, history=history, **kw)
+            return state, history
+
+        # (a), (b), (c): the main run
+        state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        losses = []
+        history = []
+        eval_steps = cfg.epochs * sum(1 for _ in DataLoader(val, cfg, shuffle=False).epoch())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        start = time.perf_counter()
+        state = train_model(cfg, train, val, state=state, checkpoint_base=os.path.join(root, "main"),
+                            steps_per_epoch=steps, rng_seed=SEED, history=history,
+                            metric_writer=lambda step, values: losses.append(values))
+        wall = time.perf_counter() - start
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        n_steps = sum(h["steps"] for h in history)
+        want = (n_steps + eval_steps, 2 * n_steps + 2 * eval_steps, 2 * n_steps)
+        if n_steps != cfg.epochs * steps or launches != want:
+            raise AssertionError(f"train_model: {n_steps} steps, {eval_steps} eval steps launched (NMS, ROIAlign, "
+                                 f"backward) = {launches}; expected {want}")
+        if not all(np.isfinite(v) for values in losses for v in values.values()) or \
+                not all(np.isfinite(v) for h in history for k, v in h.items() if "loss" in k):
+            raise AssertionError(f"train_model: a loss is not finite: {losses} {history}")
+        names = [n for n, _ in state.model.named_parameters()]
+        unchanged = [n for n, p, q in zip(names, state.model.parameters(), before)
+                     if n.endswith("weight") and torch.equal(p.detach(), q)]
+        if unchanged:
+            raise AssertionError(f"train_model: weights unchanged: {unchanged}")
+        manager = ckpt_lib.make_manager(cfg, os.path.join(root, "main"))
+        files = sorted(f for f in os.listdir(manager.directory) if f.endswith(".pt"))
+        if manager.all_steps() != [0, 1] or len(files) != 2 or cfg.save_best_only is not True:
+            raise AssertionError(f"train_model: best-only checkpoints {manager.all_steps()}, files {files}")
+        log(f"  (a) {n_steps} steps and {eval_steps} eval steps launched NMS, ROIAlign forward, backward "
+            f"{launches} times, as expected; (b) finite losses (val_loss_sum by epoch "
+            f"{[round(h['val_loss_sum'], 4) for h in history]}), every weight moved; (c) best-only checkpoints "
+            f"of epochs {manager.all_steps()} on disk, ranked by val_loss_sum "
+            f"{[round(manager.metrics(e)['val_loss_sum'], 4) for e in manager.all_steps()]}")
+        final = {"step": state.step, "lr": state.opt_state.hyperparams["learning_rate"],
+                 "weights": [p.detach().clone() for p in state.model.parameters()]}
+        del state, before
+
+        # (d) the SIGTERM drill
+        def send_sigterm(step, values):
+            if step == 2:  # the second step of epoch 1
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        state, _ = run("drill", metric_writer=send_sigterm)
+        pre = ckpt_lib.make_preempt_manager(cfg, os.path.join(root, "drill"))
+        if state.step != 2 or pre.all_steps() != [0] or ckpt_lib.make_manager(cfg, os.path.join(root, "drill")).all_steps():
+            raise AssertionError(f"SIGTERM drill: stopped at step {state.step}, preemption checkpoints {pre.all_steps()}")
+        state, _ = run("drill")
+        if state.step != 2 + steps:
+            raise AssertionError(f"SIGTERM drill: resumed to step {state.step}, expected {2 + steps}")
+        log(f"  (d) SIGTERM at step 2 left a preemption checkpoint of epoch 0 (step 2); resume ran epoch 2 to "
+            f"step {state.step}")
+        del state
+
+        # (e) a run stopped at the epoch boundary, then resumed
+        def crash(step, values):
+            if step == steps + 1:
+                raise Stop
+
+        try:
+            run("boundary", metric_writer=crash)
+            raise AssertionError("the boundary run did not stop")
+        except Stop:
+            pass
+        saved = ckpt_lib.make_manager(cfg, os.path.join(root, "boundary"))
+        extra = saved.restore(0, "cpu")["extra"]
+        state, resumed = run("boundary")
+        lr = state.opt_state.hyperparams["learning_rate"]
+        unbroken_extra = manager.restore(1, "cpu")["extra"]
+        resumed_extra = saved.restore(1, "cpu")["extra"]
+        if (state.step, lr) != (final["step"], final["lr"]) or resumed_extra["bad_epochs"] != unbroken_extra["bad_epochs"] \
+                or resumed_extra["lr"] != unbroken_extra["lr"] or len(resumed) != 1:
+            raise AssertionError(f"epoch-boundary resume: step {state.step}, lr {lr}, plateau {resumed_extra}; the "
+                                 f"unbroken run: step {final['step']}, lr {final['lr']}, plateau {unbroken_extra}")
+        diff = max(float((p.detach() - q).abs().max()) for p, q in zip(state.model.parameters(), final["weights"]))
+        log(f"  (e) stopped at step {steps + 1}, resumed from epoch 0's checkpoint (step {steps}, plateau {extra}): "
+            f"step {state.step}, lr {lr:g}, plateau {resumed_extra}, as the unbroken run's (plateau "
+            f"{unbroken_extra}); weights within {diff:.3g} of the unbroken run's")
+        del state, final
+
+        step_ips = [h["steps"] * cfg.batch_size / h["train_seconds"] for h in history]
+        wait = [h["loader_wait_s"] / h["train_seconds"] for h in history]
+        log(f"  loader alone on the host (JPEG decode, resize, mini masks, batches of 2, no cache): "
+            f"{loader_ips:.2f} images/s ({card})")
+        log(f"  train_model: {step_ips[-1]:.2f} images/s over epoch 2's training steps ({step_ips[0]:.2f} in epoch "
+            f"1, its first step included); with validation and checkpoint {history[-1]['images_per_s']:.2f} and "
+            f"{history[0]['images_per_s']:.2f} images/s; {wall:.1f} s for the run ({card})")
+        log(f"  loader wait: {wait[-1]:.4f} of epoch 2's training time, {wait[0]:.4f} of epoch 1's ({card})")
+        log(f"  peak memory {peak:.0f} MiB in train_model ({card})")
+        return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
@@ -753,27 +941,33 @@ def main() -> None:
     del tcalls, flush
     tiny_train_cross_check(device)
     train_launches = run_training(state, step, batch, gen, card)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    loop_launches = run_train_model(device, card)
 
     kernels = [
         dict(name="greedy_nms", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/nms.cu",
              replaces="maskrcnn_tf2_tpu/kernels/nms_pallas.py:29", launches=launches["nms"],
-             train_launches=train_launches["nms"], **nms_stats, library_ms=None,
+             train_launches=train_launches["nms"], train_model_launches=loop_launches["nms"], **nms_stats,
+             library_ms=None,
              train_ms=nms_train["ms"], train_bound_ms=nms_train["bound_ms"]),
         dict(name="pyramid_roi_align", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/roi_align.cu",
              replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:484",
              also_replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:224",
              launches=launches["roi_align"], train_launches=train_launches["roi_align"],
+             train_model_launches=loop_launches["roi_align"],
              **roi_stats, library_ms=None, train_ms=roi_train["ms"], train_bound_ms=roi_train["bound_ms"]),
         dict(name="pyramid_roi_align_backward", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/roi_align.cu",
              replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:967",
              also_replaces=["maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:865",
                             "maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:1316"],
-             launches=train_launches["roi_align_backward"], **bwd_stats, library_ms=None),
+             launches=train_launches["roi_align_backward"],
+             train_model_launches=loop_launches["roi_align_backward"], **bwd_stats, library_ms=None),
     ]
     log(f"== done at {time.time() - t0:.1f} s; forward kernels' times per served batch of 2 images "
         f"(ms) and per training step (train_ms), the backward's per training step of 2 images (both "
         f"call sites summed); launches: serving's 4 requests, train_launches and the backward's: the 5 "
-        f"training steps")
+        f"training steps; train_model_launches: train_model's 6 steps and 4 eval steps")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

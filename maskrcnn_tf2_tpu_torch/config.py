@@ -12,6 +12,8 @@ for that round trip; the port's inference path reads none of them.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Any, Mapping, Tuple
 
 DEFAULT_CLASS_DICT = {"background": 0, "balloon": 1}
@@ -201,3 +203,30 @@ class MaskRCNNConfig:
     def from_dict(cls, d: Mapping[str, Any]) -> "MaskRCNNConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+    def md5(self) -> str:
+        """Hash of every knob, named in checkpoint directories. The port's
+        fields and defaults are the JAX package's, so one configuration
+        hashes the same in both."""
+        blob = json.dumps(self.to_dict(), sort_keys=True, default=str)
+        return hashlib.md5(blob.encode()).hexdigest()
+
+    def to_yaml(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=True)
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "MaskRCNNConfig":
+        """A configuration from a YAML file, ``overrides`` winning; an unknown
+        key raises."""
+        import yaml
+
+        with open(path) as f:
+            d = yaml.safe_load(f) or {}
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown config keys in {path}: {sorted(unknown)}")
+        d.update(overrides)
+        return cls(**d)

@@ -1,13 +1,8 @@
-"""Inference I/O on the host: resize + meta in, unmold out.
+"""Inference I/O on the host: resize + meta in, unmold out (counterpart of
+``maskrcnn_tf2_tpu/export/inference.py``).
 
-Counterpart of ``maskrcnn_tf2_tpu/export/inference.py`` and of the
-``square`` mode of ``resize_image`` and ``unmold_mask`` in
-``maskrcnn_tf2_tpu/data/transforms.py``. The JAX package resizes with cv2,
-which the card's machine does not have; the port resizes with PyTorch's
-bilinear ``F.interpolate`` (``align_corners=False``, the same half-pixel
-grid as cv2's INTER_LINEAR). cv2 rounds uint8 images through fixed-point
-weights, so a resized image can differ from cv2's by one grey level, and an
-unmolded mask pixel can flip where the upsampled mask sits at 0.5.
+Resizing and unmolding are ``data/transforms.py``'s, in every resize mode;
+that module says where they differ from the JAX package's cv2 versions.
 """
 
 from __future__ import annotations
@@ -15,62 +10,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.data.transforms import resize_image, unmold_mask
 from maskrcnn_tf2_tpu_torch.ops.image import compose_image_meta
-
-
-def _resize_bilinear(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """``[H, W]`` or ``[H, W, C]`` -> resized, same dtype (uint8 rounds to nearest)."""
-    x = torch.from_numpy(np.ascontiguousarray(image)).to(torch.float32)
-    chw = x[None, None] if x.dim() == 2 else x.permute(2, 0, 1)[None]
-    y = F.interpolate(chw, size=(out_h, out_w), mode="bilinear", align_corners=False)[0]
-    y = y[0] if x.dim() == 2 else y.permute(1, 2, 0)
-    if image.dtype == np.uint8:
-        y = y.round().clamp(0, 255)
-    return y.numpy().astype(image.dtype)
-
-
-def resize_image(image: np.ndarray, min_dim=None, max_dim=None, min_scale=None, mode="square"):
-    """Aspect-preserving resize + centered zero pad to ``max_dim`` square.
-
-    Returns ``(image, window, scale)``; ``window`` is the (y1, x1, y2, x2)
-    pixel region of the real image inside the padding.
-    Only the ``square`` mode, the flagship configuration's, is ported.
-    """
-    if mode != "square":
-        raise NotImplementedError(f"resize mode {mode!r} is not ported yet (only 'square')")
-    h, w = image.shape[:2]
-    scale = 1.0
-    if min_dim:
-        scale = max(1.0, min_dim / min(h, w))
-    if min_scale and scale < min_scale:
-        scale = min_scale
-    if max_dim:
-        image_max = max(h, w)
-        if round(image_max * scale) > max_dim:
-            scale = max_dim / image_max
-    if scale != 1.0:
-        image = _resize_bilinear(image, round(h * scale), round(w * scale))
-    h, w = image.shape[:2]
-    top_pad = (max_dim - h) // 2
-    left_pad = (max_dim - w) // 2
-    padding = [(top_pad, max_dim - h - top_pad), (left_pad, max_dim - w - left_pad), (0, 0)]
-    image = np.pad(image, padding[: image.ndim], mode="constant")
-    return image, (top_pad, left_pad, h + top_pad, w + left_pad), scale
-
-
-def unmold_mask(mask: np.ndarray, bbox, image_shape) -> np.ndarray:
-    """Paste a low-res float mask into full resolution, thresholded at 0.5."""
-    y1, x1, y2, x2 = (int(v) for v in bbox)
-    full = np.zeros(tuple(image_shape[:2]), dtype=bool)
-    if y2 <= y1 or x2 <= x1:
-        return full
-    m = _resize_bilinear(mask.astype(np.float32), y2 - y1, x2 - x1)
-    full[y1:y2, x1:x2] = m >= 0.5
-    return full
 
 
 def process_input(
@@ -79,7 +22,7 @@ def process_input(
     """RGB image -> (molded image in the input dtype, meta vector).
     Normalization happens on the device inside the model."""
     original_shape = image.shape
-    molded, window, scale = resize_image(
+    molded, window, scale, _, _ = resize_image(
         image,
         min_dim=config.image_min_dim,
         max_dim=config.image_max_dim,

@@ -29,14 +29,20 @@ def draw_uniforms(config, batch_size: int, generator: torch.Generator, device,
     """Every uniform draw of one training step, on the CPU from ``generator``
     and then moved to ``device``, so one seed gives the same draws on every
     device. ``num_rois`` is the ROI count per image handed to
-    ``detection_targets`` (the proposal count unless ``use_rpn_rois=False``)."""
+    ``detection_targets`` (the proposal count unless ``use_rpn_rois=False``).
+    With ``augment_on_device`` the step's ``ops.augment.device_augment``
+    draws come after the others: ``aug_flip``, ``aug_scale``, ``aug_bright``
+    and ``aug_contrast``, one per image."""
     a = config.num_anchors()
     p = config.post_nms_rois(True) if num_rois is None else num_rois
 
-    def u(n):
-        return torch.rand((batch_size, n), generator=generator, dtype=torch.float32).to(device)
+    def u(*shape):
+        return torch.rand((batch_size, *shape), generator=generator, dtype=torch.float32).to(device)
 
-    return {"rpn_pos": u(a), "rpn_neg": u(a), "det_pos": u(p), "det_neg": u(p)}
+    draws = {"rpn_pos": u(a), "rpn_neg": u(a), "det_pos": u(p), "det_neg": u(p)}
+    if config.augment_on_device:
+        draws.update({k: u() for k in ("aug_flip", "aug_scale", "aug_bright", "aug_contrast")})
+    return draws
 
 
 def _random_keep_topk(draws: torch.Tensor, candidate: torch.Tensor, k, k_bound: Optional[int] = None) -> torch.Tensor:

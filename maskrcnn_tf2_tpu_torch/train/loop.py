@@ -1,0 +1,226 @@
+"""The training loop, ``train_model`` (counterpart of
+``maskrcnn_tf2_tpu/train/loop.py``, its single-device branch).
+
+Epochs over ``prefetch_to_device(DataLoader.epoch())``, validation through
+the eval step with the loss means summed on the device and read once, the
+ReduceLROnPlateau scheduler (its state saved with each checkpoint), best-only
+checkpoints, SIGTERM preemption with a checkpoint after the in-flight step,
+and resume. Multi-device and multi-host training are not ported yet. The
+JAX package's persistent XLA compile cache (``utils/compile_cache.py``) has
+no counterpart: eager PyTorch compiles nothing but the CUDA kernels, which
+``kernels/_build.py`` builds once into its own directory.
+
+Randomness: the draws of the step at ``global_step`` come from a
+``torch.Generator`` seeded by ``(rng_seed, global_step)`` (``step_generator``,
+the counterpart of ``fold_in(rng, global_step)``), and the loader replays the
+shuffles of the epochs already trained, so a run resumed at an epoch
+boundary draws what the unbroken run drew.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import signal
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.data.loader import DataLoader, prefetch_to_device
+from maskrcnn_tf2_tpu_torch.device import DeviceLike
+from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
+from maskrcnn_tf2_tpu_torch.train.optimizer import set_learning_rate
+from maskrcnn_tf2_tpu_torch.train.train_step import TrainState, create_train_state, make_eval_step, make_train_step
+
+
+class PlateauScheduler:
+    """ReduceLROnPlateau: the learning rate times ``factor`` after
+    ``patience`` epochs without a new best. ``state_dict``/``load_state_dict``
+    carry it through checkpoints, so a resumed run continues its LR
+    trajectory."""
+
+    def __init__(self, factor: float, patience: int, base_lr: float):
+        self.factor = factor
+        self.patience = patience
+        self.lr = base_lr
+        self.best = float("inf")
+        self.bad_epochs = 0
+
+    def update(self, metric: float) -> float:
+        if metric < self.best - 1e-7:
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs >= self.patience:
+                self.lr *= self.factor
+                self.bad_epochs = 0
+        return self.lr
+
+    def state_dict(self) -> Dict[str, float]:
+        return {"lr": self.lr, "best": self.best, "bad_epochs": float(self.bad_epochs)}
+
+    def load_state_dict(self, d: Dict[str, float]):
+        self.lr = float(d["lr"])
+        self.best = float(d["best"])
+        self.bad_epochs = int(d["bad_epochs"])
+
+
+def step_generator(rng_seed: int, global_step: int) -> torch.Generator:
+    """The generator of the step at ``global_step``'s draws."""
+    seed = np.random.SeedSequence([rng_seed, global_step]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _eval_generator(rng_seed: int) -> torch.Generator:
+    """Every eval batch draws from the same seed, as the JAX loop passes its
+    one base key to each eval step."""
+    seed = np.random.SeedSequence([rng_seed]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
+
+
+def train_model(
+    config: MaskRCNNConfig,
+    train_dataset,
+    val_dataset=None,
+    state: Optional[TrainState] = None,
+    augment_fn=None,
+    metric_writer: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    checkpoint_base: Optional[str] = None,
+    profile_steps: Optional[tuple] = None,
+    resume: bool = True,
+    steps_per_epoch: Optional[int] = None,
+    rng_seed: int = 0,
+    device: DeviceLike = None,
+    history: Optional[List[Dict[str, float]]] = None,
+) -> TrainState:
+    """Train for ``config.epochs`` epochs on ``device`` (the card unless
+    ``"cpu"``); returns the final ``TrainState``.
+
+    ``metric_writer(global_step, losses)`` is called every
+    ``config.log_per_steps`` steps. ``profile_steps=(first, last)`` traces
+    those global steps with ``torch.profiler`` into the checkpoint directory.
+    ``steps_per_epoch`` caps an epoch. A list passed as ``history`` gets one
+    dict per finished epoch: its metrics (train means, ``val_*`` means),
+    ``lr``, ``steps``, ``seconds`` and ``images_per_s`` (the whole epoch's,
+    validation and checkpoint included), ``train_seconds`` (its training
+    steps') and ``loader_wait_s`` (the part of those the loop waited for the
+    next batch).
+    """
+    if state is None:
+        state = create_train_state(config, torch.Generator().manual_seed(rng_seed), device=device)
+    device = next(state.model.parameters()).device
+    sched = PlateauScheduler(config.reduce_lr_factor, config.reduce_lr_patience, config.learning_rate)
+    manager = ckpt_lib.make_manager(config, checkpoint_base)
+    pre_manager = ckpt_lib.make_preempt_manager(config, checkpoint_base)
+    start_epoch = 0
+    if resume:  # from whichever manager holds the newest checkpoint
+        state, start_epoch, extra = ckpt_lib.restore(ckpt_lib.pick_resume_manager(manager, pre_manager), state,
+                                                     extra_template=sched.state_dict())
+        if extra is not None:
+            sched.load_state_dict(extra)
+            state.opt_state = set_learning_rate(state.opt_state, sched.lr)
+    train_loader = DataLoader(train_dataset, config, shuffle=True, augment_fn=augment_fn)
+    train_loader.skip_epochs(start_epoch)
+
+    # SIGTERM (a preemption notice) sets a flag; the loop checkpoints after
+    # the step in flight and returns, and resume=True continues from there.
+    # siginterrupt(False) resumes a system call the signal interrupts instead
+    # of failing it.
+    preempt = {"hit": False}
+
+    def _mark_preempt(signum, frame):
+        preempt["hit"] = True
+        print(f"signal {signum}: checkpointing after the in-flight step")
+
+    installed, prev_handler = False, None
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _mark_preempt)
+        installed = True
+        signal.siginterrupt(signal.SIGTERM, False)
+    except ValueError:  # not the main thread: no handler
+        pass
+    anomaly = torch.autograd.set_detect_anomaly(True) if config.debug_nans else contextlib.nullcontext()
+    try:
+        with anomaly:
+            return _epoch_loop(config, state, train_loader, val_dataset, manager, pre_manager, sched,
+                               metric_writer, checkpoint_base, profile_steps, steps_per_epoch, rng_seed,
+                               start_epoch, preempt, device, history)
+    finally:  # a raise in the loop must not leave the handler installed
+        if installed:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL if prev_handler is None else prev_handler)
+
+
+def _means(sums: Optional[Dict[str, torch.Tensor]], n: int) -> Dict[str, float]:
+    """Loss sums on the device -> means on the host, in one read."""
+    if not sums:
+        return {}
+    values = torch.stack([v.to(torch.float32) for v in sums.values()]).tolist()
+    return {k: v / n for k, v in zip(sums, values)}
+
+
+def _epoch_loop(config, state, train_loader, val_dataset, manager, pre_manager, sched, metric_writer,
+                checkpoint_base, profile_steps, steps_per_epoch, rng_seed, start_epoch, preempt, device, history):
+    train_step = make_train_step(config)
+    eval_step = make_eval_step(config)
+    profiler = None
+    for epoch in range(start_epoch, config.epochs):
+        t0 = time.perf_counter()
+        agg, spe, wait = None, 0, 0.0  # losses summed on the device: one read at the epoch's end
+        batches = prefetch_to_device(train_loader.epoch(), config.prefetch_size, device)
+        with contextlib.closing(batches):
+            while not (steps_per_epoch and spe >= steps_per_epoch):
+                t_wait = time.perf_counter()
+                batch = next(batches, None)
+                wait += time.perf_counter() - t_wait
+                if batch is None:
+                    break
+                global_step = state.step
+                if profile_steps and global_step == profile_steps[0]:
+                    profiler = torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU]
+                        + ([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else []))
+                    profiler.start()
+                state, losses = train_step(state, batch, rng=step_generator(rng_seed, global_step))
+                if profiler is not None and global_step == profile_steps[1]:
+                    profiler.stop()
+                    profiler.export_chrome_trace(f"{ckpt_lib.checkpoint_dir(config, checkpoint_base)}/"
+                                                 f"trace_steps_{profile_steps[0]}_{profile_steps[1]}.json")
+                    profiler = None
+                spe += 1
+                agg = losses if agg is None else {k: agg[k] + v for k, v in losses.items()}
+                if metric_writer and spe % config.log_per_steps == 0:
+                    metric_writer(state.step, {k: float(v) for k, v in losses.items()})
+                if preempt["hit"]:  # checked last: a signal inside metric_writer stops after this step
+                    break
+        train_seconds = time.perf_counter() - t0
+        metrics = _means(agg, spe)
+        if preempt["hit"]:
+            # the partial epoch's checkpoint keeps every step taken; resume
+            # starts at the next epoch
+            ckpt_lib.save(pre_manager, state, epoch, metrics, extra=sched.state_dict())
+            print(f"preempted at epoch {epoch + 1} step {spe}: checkpoint saved")
+            return state
+        if val_dataset is not None:
+            val_agg, val_n = None, 0
+            for vb in prefetch_to_device(DataLoader(val_dataset, config, shuffle=False).epoch(),
+                                         config.prefetch_size, device):
+                vl = eval_step(state, vb, rng=_eval_generator(rng_seed))
+                val_agg = vl if val_agg is None else {k: val_agg[k] + v for k, v in vl.items()}
+                val_n += 1
+            metrics.update({f"val_{k}": v for k, v in _means(val_agg, val_n).items()})
+
+        new_lr = sched.update(metrics.get("val_loss_sum", metrics.get("loss_sum", 0.0)))
+        state.opt_state = set_learning_rate(state.opt_state, new_lr)
+        ckpt_lib.save(manager, state, epoch, metrics, extra=sched.state_dict())
+        dt = time.perf_counter() - t0
+        ips = spe * config.batch_size / dt
+        if history is not None:
+            history.append(dict(metrics, epoch=epoch, lr=new_lr, steps=spe, seconds=dt, images_per_s=ips,
+                                train_seconds=train_seconds, loader_wait_s=wait))
+        print(f"epoch {epoch + 1}/{config.epochs} loss={metrics.get('loss_sum', float('nan')):.4f} "
+              + (f"val_loss={metrics['val_loss_sum']:.4f} " if "val_loss_sum" in metrics else "")
+              + f"lr={new_lr:.2e} {ips:.2f} img/s, waited {wait:.2f} s of {dt:.2f} s for the loader")
+    return state

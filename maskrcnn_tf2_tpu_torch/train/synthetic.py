@@ -1,12 +1,16 @@
-"""A seeded synthetic training batch, for smoke runs and profiles on the card."""
+"""Seeded synthetic training data, for smoke runs and profiles on the card: a
+batch of tensors, or datasets of shapes images written as a COCO directory."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
+from maskrcnn_tf2_tpu_torch.data.coco import CocoDataset
+from maskrcnn_tf2_tpu_torch.data.synthetic import SyntheticShapesDataset
+from maskrcnn_tf2_tpu_torch.data.synthetic_coco import export_coco_format
 from maskrcnn_tf2_tpu_torch.ops.image import compose_image_meta
 
 
@@ -45,3 +49,21 @@ def synthetic_batch(config, batch_size: int, seed: int, device) -> Dict[str, tor
         "gt_masks": masks,
     }
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def shapes_coco_datasets(root: str, counts=(12, 4), size: int = 512, seed: int = 0) -> List[CocoDataset]:
+    """``SyntheticShapesDataset`` sets of ``counts`` images (up to 6 shapes of
+    3 classes each, ``size`` a side) written under ``root`` as the COCO
+    subsets ``train``, ``val``, ... (JPEG images, RLE masks; needs Pillow) and
+    read back through ``CocoDataset``, the path a user's data takes."""
+    out = []
+    for i, (n, subset) in enumerate(zip(counts, ("train", "val", "test"))):
+        ds = SyntheticShapesDataset()
+        ds.load_shapes(n, size, size, max_shapes=6, seed=seed + i)
+        ds.prepare()
+        export_coco_format(ds, root, subset=subset)
+        coco = CocoDataset()
+        coco.load_coco(root, subset)
+        coco.prepare()
+        out.append(coco)
+    return out

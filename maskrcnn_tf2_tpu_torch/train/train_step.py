@@ -27,6 +27,7 @@ from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.device import DeviceLike
 from maskrcnn_tf2_tpu_torch.losses import compute_losses, l2_reg_loss
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
+from maskrcnn_tf2_tpu_torch.ops.augment import device_augment
 from maskrcnn_tf2_tpu_torch.ops.image import parse_image_meta
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms, rpn_targets
 from maskrcnn_tf2_tpu_torch.train.optimizer import OptState, build_optimizer
@@ -67,8 +68,14 @@ def _bn_stats(model: MaskRCNN) -> List[torch.Tensor]:
     return [t for m in model.modules() if isinstance(m, _BN) for t in (m.running_mean, m.running_var)]
 
 
-def _loss(model: MaskRCNN, batch: Batch, draws: Mapping[str, torch.Tensor], config: MaskRCNNConfig):
-    """Total loss and the named losses (``l2_loss`` among them)."""
+def _loss(model: MaskRCNN, batch: Batch, draws: Mapping[str, torch.Tensor], config: MaskRCNNConfig,
+          augment: bool = False):
+    """Total loss and the named losses (``l2_loss`` among them). ``augment``
+    (the training step's) applies ``device_augment`` first when the config
+    asks for it, before the RPN targets, as the JAX step does."""
+    if augment and config.augment_on_device:
+        batch = device_augment(batch, draws, flip=config.augment_flip, scale_jitter=config.augment_scale_jitter,
+                               photometric=config.augment_photometric)
     rpn = rpn_targets(model.anchors, batch["gt_class_ids"], batch["gt_boxes"], draws["rpn_pos"],
                       draws["rpn_neg"], config.rpn_train_anchors_per_image, config.rpn_bbox_std_dev)
     outputs = model(batch["images"], batch["image_meta"], batch["gt_class_ids"], batch["gt_boxes"],
@@ -95,14 +102,14 @@ def make_train_step(config: MaskRCNNConfig):
 
     ``batch``: ``images [B, H, W, 3]``, ``image_meta [B, M]``,
     ``gt_class_ids [B, G]``, ``gt_boxes [B, G, 4]``, ``gt_masks [B, G, mh,
-    mw]`` and, when ``use_rpn_rois=False``, ``input_rois [B, R, 4]``, all on
-    the model's device. Frozen modules get zero gradients, so that the
-    optimizer state advances for them as optax's does.
+    mw]`` (images and masks uint8 or float) and, when ``use_rpn_rois=False``,
+    ``input_rois [B, R, 4]``, all on the model's device. With
+    ``augment_on_device`` the step augments the batch (``ops/augment.py``).
+    Frozen modules get zero gradients, so that the optimizer state advances
+    for them as optax's does.
     """
     if config.quant_mode != "off":
         raise ValueError("quant_mode is inference-only post-training quantization; train with quant_mode='off'")
-    if config.augment_on_device:
-        raise ValueError("device-side augmentation (ops/augment.py) is not ported yet")
     if config.nonfinite_guard not in ("off", "loss", "full"):
         raise ValueError(f"nonfinite_guard {config.nonfinite_guard!r}")
     opt = build_optimizer(config)
@@ -113,7 +120,7 @@ def make_train_step(config: MaskRCNNConfig):
         params = list(model.parameters())
         stats = _bn_stats(model)
         saved = [t.clone() for t in stats] if config.nonfinite_guard != "off" else None
-        total, losses = _loss(model, batch, _draws(config, batch, rng, draws), config)
+        total, losses = _loss(model, batch, _draws(config, batch, rng, draws), config, augment=True)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         updates, new_opt_state = opt.update(grads, state.opt_state, params)
@@ -141,8 +148,8 @@ def make_train_step(config: MaskRCNNConfig):
 
 def make_eval_step(config: MaskRCNNConfig):
     """``eval_step(state, batch, rng=None, draws=None) -> losses``: the same
-    losses as a training step, without the L2 term, the update, or any change
-    to the batch-norm statistics."""
+    losses as a training step, without the augmentation, the L2 term, the
+    update, or any change to the batch-norm statistics."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch, rng: Optional[torch.Generator] = None,
