@@ -56,9 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                two forward and two backward ROIAlign launches; median step time
                over steps 2-5 and peak memory.
 10. train_model -- the loop a user runs, at the flagship's widths (ResNet-50-FPN,
-               512x512, bf16, batch 2, 2000 proposals, 200 ROIs per image)
-               with 4 classes from a dataset: 12 + 4 synthetic shapes images
-               written as a COCO directory (JPEG, RLE) and read back through
+               512x512, bf16, batch 2, 2000 proposals, 200 ROIs per image,
+               81 classes) from a dataset: 12 + 4 synthetic shapes images
+               written as a COCO directory with COCO's 80 categories (the
+               shapes are the first three; JPEG, RLE) and read back through
                ``CocoDataset``, device augmentation on (flip, zoom-out 0.25,
                photometric 0.2), a sample cache and checkpoints in a temporary
                directory; 2 epochs of 3 steps with validation. Holds: (a)
@@ -71,13 +72,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                count, the LR and the plateau state of the unbroken run. Prints
                the loader's images/s alone on the host, train_model's
                images/s, the share of the loop's time spent waiting on the
-               loader and peak memory, each with the card line.
-11. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+               loader and peak memory, each with the card line. The
+               directory stays until phase 13 is done.
+11. pretrained -- a seeded torchvision-keyed ResNet-50 ``state_dict`` saved to
+               a ``.pth`` (``train/synthetic.py``) loads through
+               ``create_train_state`` at the flagship's training config on the
+               card: coverage 265/265 and every backbone entry equal to the
+               file's bit for bit; then 2 training steps with launch counts
+               set to 0: finite losses, ``grad_finite`` 1, exactly 1, 2 and 2
+               launches a step of NMS, ROIAlign forward and backward.
+12. evaluate -- phase 10's best checkpoint, put where ``cli/evaluate.py``
+               looks for it, evaluated by ``cli.evaluate.main`` on the
+               synthetic COCO val set, then through ``evaluate_dataset`` over
+               ``detect`` and over ``detect_stream``: equal AP dicts, exactly
+               2 NMS and 2 ROIAlign forward launches a batch of 2 on each
+               route; ``detect_stream`` (batch 2, depth 2) equal to ``detect``
+               over the same chunks, image for image; AP, seconds per image
+               and images/s of both routes with the card line.
+13. detect CLI -- ``cli.detect.main`` on 2 JPEGs it is handed, with ``--out``:
+               the JSON equals ``Predictor.detect``'s results and the overlay
+               PNGs exist; 2 NMS and 2 ROIAlign forward launches an image.
+14. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -91,13 +113,18 @@ from unittest import mock
 import numpy as np
 import torch
 
+from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
+from maskrcnn_tf2_tpu_torch.cli import evaluate as cli_evaluate
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.data import image_io
+from maskrcnn_tf2_tpu_torch.data.coco import COCO_CLASS_NAMES
 from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
-from maskrcnn_tf2_tpu_torch.data.synthetic import SyntheticShapesDataset
+from maskrcnn_tf2_tpu_torch.eval.coco_eval import evaluate_dataset
 from maskrcnn_tf2_tpu_torch.export.inference import process_input
 from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.kernels import nms as nms_kernel
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as roi_kernel
+from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_resnet
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
@@ -105,7 +132,8 @@ from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
 from maskrcnn_tf2_tpu_torch.train.loop import train_model
-from maskrcnn_tf2_tpu_torch.train.synthetic import shapes_coco_datasets, smooth_image, synthetic_batch
+from maskrcnn_tf2_tpu_torch.train.synthetic import (shapes_coco_datasets, smooth_image, synthetic_batch,
+                                                     torchvision_resnet_state_dict)
 from maskrcnn_tf2_tpu_torch.train.train_step import _loss, create_train_state, make_train_step
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
@@ -723,147 +751,309 @@ class Stop(Exception):
 
 
 def shapes_datasets(root):
-    """12 training and 4 validation images of 512x512 synthetic shapes, through
-    a COCO directory when Pillow is there to write the JPEGs."""
-    try:
-        import PIL  # noqa: F401
-    except ImportError:
-        log("  Pillow is absent: training from the in-memory synthetic set, not from files")
-        sets = []
-        for n, seed in ((12, SEED + 10), (4, SEED + 11)):
-            ds = SyntheticShapesDataset()
-            ds.load_shapes(n, 512, 512, max_shapes=6, seed=seed)
-            ds.prepare()
-            sets.append(ds)
-        return sets
-    sets = shapes_coco_datasets(root, (12, 4), 512, SEED + 10)
-    log(f"  dataset: {len(sets[0])} + {len(sets[1])} images of 512x512 shapes written as COCO (JPEG, RLE) "
-        f"under a temporary directory and read back through CocoDataset")
+    """12 training and 4 validation images of 512x512 synthetic shapes,
+    through a COCO directory with COCO's 80 categories."""
+    sets = shapes_coco_datasets(root, (12, 4), 512, SEED + 10, class_names=COCO_CLASS_NAMES)
+    log(f"  dataset: {len(sets[0])} + {len(sets[1])} images of 512x512 shapes written as COCO (JPEG, RLE; the "
+        f"shapes are 3 of its 80 categories) under a temporary directory and read back through CocoDataset")
     return sets
 
 
-def run_train_model(device, card):
-    """Phase 10 (see the module's docstring). Returns the launch counts of the
-    main run."""
-    log("== train_model: ResNet-50-FPN, 512x512, bf16, batch 2, 4 classes from the dataset, device augmentation, "
+def run_train_model(device, card, root):
+    """Phase 10 (see the module's docstring), in ``root``. Returns the launch
+    counts of the main run, its configuration and the validation set."""
+    log("== train_model: ResNet-50-FPN, 512x512, bf16, batch 2, 81 classes from the dataset, device augmentation, "
         "2 epochs of 3 steps with validation")
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_model_")
-    try:
-        train, val = shapes_datasets(os.path.join(root, "coco"))
-        cfg = flagship_train_config().replace(
-            num_classes=train.num_classes, epochs=2, log_per_steps=1, augment_on_device=True,
-            augment_scale_jitter=0.25, augment_photometric=0.2, reduce_lr_patience=1, reduce_lr_factor=0.5,
-            sample_cache_dir=os.path.join(root, "cache"), checkpoints_dir=os.path.join(root, "ckpt"))
-        steps = 3
+    train, val = shapes_datasets(os.path.join(root, "coco"))
+    cfg = flagship_train_config().replace(
+        num_classes=train.num_classes, epochs=2, log_per_steps=1, augment_on_device=True,
+        augment_scale_jitter=0.25, augment_photometric=0.2, reduce_lr_patience=1, reduce_lr_factor=0.5,
+        sample_cache_dir=os.path.join(root, "cache"), checkpoints_dir=os.path.join(root, "ckpt"))
+    steps = 3
 
-        # the loader alone on the host: decoding, resizing, mini masks, collation
-        start = time.perf_counter()
-        n_images = sum(len(b["images"]) for b in DataLoader(train, cfg.replace(sample_cache_dir=None)).epoch())
-        loader_ips = n_images / (time.perf_counter() - start)
+    # the loader alone on the host: decoding, resizing, mini masks, collation
+    start = time.perf_counter()
+    n_images = sum(len(b["images"]) for b in DataLoader(train, cfg.replace(sample_cache_dir=None)).epoch())
+    loader_ips = n_images / (time.perf_counter() - start)
 
-        def run(base, **kw):
-            state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
-            history = []
-            state = train_model(cfg, train, val, state=state, checkpoint_base=os.path.join(root, base),
-                                steps_per_epoch=steps, rng_seed=SEED, history=history, **kw)
-            return state, history
-
-        # (a), (b), (c): the main run
+    def run(base, **kw):
         state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
-        before = [p.detach().clone() for p in state.model.parameters()]
-        losses = []
         history = []
-        eval_steps = cfg.epochs * sum(1 for _ in DataLoader(val, cfg, shuffle=False).epoch())
+        state = train_model(cfg, train, val, state=state, checkpoint_base=os.path.join(root, base),
+                            steps_per_epoch=steps, rng_seed=SEED, history=history, **kw)
+        return state, history
+
+    # (a), (b), (c): the main run
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    losses = []
+    history = []
+    eval_steps = cfg.epochs * sum(1 for _ in DataLoader(val, cfg, shuffle=False).epoch())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    start = time.perf_counter()
+    state = train_model(cfg, train, val, state=state, checkpoint_base=os.path.join(root, "main"),
+                        steps_per_epoch=steps, rng_seed=SEED, history=history,
+                        metric_writer=lambda step, values: losses.append(values))
+    wall = time.perf_counter() - start
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n_steps = sum(h["steps"] for h in history)
+    want = (n_steps + eval_steps, 2 * n_steps + 2 * eval_steps, 2 * n_steps)
+    if n_steps != cfg.epochs * steps or launches != want:
+        raise AssertionError(f"train_model: {n_steps} steps, {eval_steps} eval steps launched (NMS, ROIAlign, "
+                             f"backward) = {launches}; expected {want}")
+    if not all(np.isfinite(v) for values in losses for v in values.values()) or \
+            not all(np.isfinite(v) for h in history for k, v in h.items() if "loss" in k):
+        raise AssertionError(f"train_model: a loss is not finite: {losses} {history}")
+    names = [n for n, _ in state.model.named_parameters()]
+    unchanged = [n for n, p, q in zip(names, state.model.parameters(), before)
+                 if n.endswith("weight") and torch.equal(p.detach(), q)]
+    if unchanged:
+        raise AssertionError(f"train_model: weights unchanged: {unchanged}")
+    manager = ckpt_lib.make_manager(cfg, os.path.join(root, "main"))
+    files = sorted(f for f in os.listdir(manager.directory) if f.endswith(".pt"))
+    if manager.all_steps() != [0, 1] or len(files) != 2 or cfg.save_best_only is not True:
+        raise AssertionError(f"train_model: best-only checkpoints {manager.all_steps()}, files {files}")
+    log(f"  (a) {n_steps} steps and {eval_steps} eval steps launched NMS, ROIAlign forward, backward "
+        f"{launches} times, as expected; (b) finite losses (val_loss_sum by epoch "
+        f"{[round(h['val_loss_sum'], 4) for h in history]}), every weight moved; (c) best-only checkpoints "
+        f"of epochs {manager.all_steps()} on disk, ranked by val_loss_sum "
+        f"{[round(manager.metrics(e)['val_loss_sum'], 4) for e in manager.all_steps()]}")
+    final = {"step": state.step, "lr": state.opt_state.hyperparams["learning_rate"],
+             "weights": [p.detach().clone() for p in state.model.parameters()]}
+    del state, before
+
+    # (d) the SIGTERM drill
+    def send_sigterm(step, values):
+        if step == 2:  # the second step of epoch 1
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    state, _ = run("drill", metric_writer=send_sigterm)
+    pre = ckpt_lib.make_preempt_manager(cfg, os.path.join(root, "drill"))
+    if state.step != 2 or pre.all_steps() != [0] or ckpt_lib.make_manager(cfg, os.path.join(root, "drill")).all_steps():
+        raise AssertionError(f"SIGTERM drill: stopped at step {state.step}, preemption checkpoints {pre.all_steps()}")
+    state, _ = run("drill")
+    if state.step != 2 + steps:
+        raise AssertionError(f"SIGTERM drill: resumed to step {state.step}, expected {2 + steps}")
+    log(f"  (d) SIGTERM at step 2 left a preemption checkpoint of epoch 0 (step 2); resume ran epoch 2 to "
+        f"step {state.step}")
+    del state
+
+    # (e) a run stopped at the epoch boundary, then resumed
+    def crash(step, values):
+        if step == steps + 1:
+            raise Stop
+
+    try:
+        run("boundary", metric_writer=crash)
+        raise AssertionError("the boundary run did not stop")
+    except Stop:
+        pass
+    saved = ckpt_lib.make_manager(cfg, os.path.join(root, "boundary"))
+    extra = saved.restore(0, "cpu")["extra"]
+    state, resumed = run("boundary")
+    lr = state.opt_state.hyperparams["learning_rate"]
+    unbroken_extra = manager.restore(1, "cpu")["extra"]
+    resumed_extra = saved.restore(1, "cpu")["extra"]
+    if (state.step, lr) != (final["step"], final["lr"]) or resumed_extra["bad_epochs"] != unbroken_extra["bad_epochs"] \
+            or resumed_extra["lr"] != unbroken_extra["lr"] or len(resumed) != 1:
+        raise AssertionError(f"epoch-boundary resume: step {state.step}, lr {lr}, plateau {resumed_extra}; the "
+                             f"unbroken run: step {final['step']}, lr {final['lr']}, plateau {unbroken_extra}")
+    diff = max(float((p.detach() - q).abs().max()) for p, q in zip(state.model.parameters(), final["weights"]))
+    log(f"  (e) stopped at step {steps + 1}, resumed from epoch 0's checkpoint (step {steps}, plateau {extra}): "
+        f"step {state.step}, lr {lr:g}, plateau {resumed_extra}, as the unbroken run's (plateau "
+        f"{unbroken_extra}); weights within {diff:.3g} of the unbroken run's")
+    del state, final
+
+    step_ips = [h["steps"] * cfg.batch_size / h["train_seconds"] for h in history]
+    wait = [h["loader_wait_s"] / h["train_seconds"] for h in history]
+    log(f"  loader alone on the host (JPEG decode, resize, mini masks, batches of 2, no cache): "
+        f"{loader_ips:.2f} images/s ({card})")
+    log(f"  train_model: {step_ips[-1]:.2f} images/s over epoch 2's training steps ({step_ips[0]:.2f} in epoch "
+        f"1, its first step included); with validation and checkpoint {history[-1]['images_per_s']:.2f} and "
+        f"{history[0]['images_per_s']:.2f} images/s; {wall:.1f} s for the run ({card})")
+    log(f"  loader wait: {wait[-1]:.4f} of epoch 2's training time, {wait[0]:.4f} of epoch 1's ({card})")
+    log(f"  peak memory {peak:.0f} MiB in train_model ({card})")
+    return dict(zip(("nms", "roi_align", "roi_align_backward"), launches)), cfg, val
+
+
+# ---------------------------------------------------------------------------
+# pretrained weights, evaluation and the CLIs
+# ---------------------------------------------------------------------------
+
+
+def run_pretrained(device, card, root):
+    """Phase 11: fine-tune from a torchvision-keyed ResNet-50 file. Returns the
+    launch counts of its 2 steps."""
+    log("== pretrained: a seeded torchvision-keyed ResNet-50 state_dict into the flagship's training state")
+    path = os.path.join(root, "resnet50.pth")
+    sd = torchvision_resnet_state_dict("resnet50", SEED + 12)
+    torch.save(sd, path)
+    mib = os.path.getsize(path) / 2**20
+    tcfg = flagship_train_config().replace(backbone_init_weights=path)
+    printed = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        state = create_train_state(tcfg, torch.Generator().manual_seed(SEED), device=device)
+    load_s = time.perf_counter() - start
+    coverage = printed.getvalue().strip()
+    if "265/265 leaves" not in coverage:
+        raise AssertionError(f"pretrained coverage: {coverage!r}; expected 265/265")
+    got = state.model.state_dict()
+    differ = [k for k, v in convert_torch_resnet(sd).items() if not torch.equal(got["backbone." + k].cpu(), v)]
+    if differ or len(convert_torch_resnet(sd)) != 265:
+        raise AssertionError(f"pretrained: backbone entries differ from the file's: {differ[:5]}")
+    step = make_train_step(tcfg)
+    batch = synthetic_batch(tcfg, 2, SEED + 6, device)
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    losses = []
+    for i in range(2):
+        state, values = step(state, batch, rng=gen)
+        losses.append({k: float(v) for k, v in values.items()})
+        if not all(np.isfinite(v) for v in losses[-1].values()) or losses[-1]["grad_finite"] != 1.0:
+            raise AssertionError(f"pretrained step {i}: {losses[-1]}")
+    launches = launch_counts()
+    if launches != (2, 4, 4):
+        raise AssertionError(f"2 fine-tune steps launched (NMS, ROIAlign, backward) = {launches}; expected (2, 4, 4)")
+    log(f"  {coverage} ({mib:.1f} MiB file, create_train_state {load_s:.2f} s); every backbone entry equals the "
+        f"file's bit for bit; 2 steps: loss_sum {[round(v['loss_sum'], 4) for v in losses]}, grad_finite 1, "
+        f"launches {launches} ({card})")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
+
+
+def rehome_checkpoint(src_cfg, src_base, dst_cfg):
+    """Save the best of ``src_cfg``'s checkpoints where ``dst_cfg``'s manager
+    (a CLI's) looks for it; returns the model's state_dict."""
+    src = ckpt_lib.make_manager(src_cfg, src_base)
+    best = min(src.all_steps(), key=lambda e: src.metrics(e)["val_loss_sum"])
+    payload = src.restore(best, "cpu")
+    ckpt_lib.make_manager(dst_cfg).save(best, payload, src.metrics(best))
+    return payload["model"]
+
+
+def images_per_s(fn, images):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn(images)
+    return len(images) / (time.perf_counter() - start)
+
+
+def run_evaluate(device, card, root, train_cfg, val):
+    """Phase 12. Returns the launch counts of the ``detect`` and the
+    ``detect_stream`` routes and the CLI configuration's state_dict."""
+    log("== evaluate: phase 10's best checkpoint through cli.evaluate, evaluate_dataset over detect and over "
+        "detect_stream (batch 2, depth 2)")
+    size = train_cfg.image_shape[0]
+    cfg = cli_evaluate.coco_config(backbone=train_cfg.backbone, num_classes=81, image_shape=(size, size, 3),
+                                   image_min_dim=size, image_max_dim=size, batch_size=2,
+                                   checkpoints_dir=os.path.join(root, "cli"))
+    state_dict = rehome_checkpoint(train_cfg, os.path.join(root, "main"), cfg)
+    out = os.path.join(root, "ap.json")
+    batches = -(-len(val) // cfg.batch_size)
+    routes = {}
+    for name, run in (
+        ("cli", lambda: cli_evaluate.main(["--dataset_path", os.path.join(root, "coco"), "--backbone", cfg.backbone,
+                                           "--img_size", str(size), "--batch_size", "2", "--checkpoints_dir",
+                                           cfg.checkpoints_dir, "--out", out, "--device", device.type])),
+        ("detect", lambda: evaluate_dataset(predictor, val, cfg, verbose=False)),
+        ("stream", lambda: evaluate_dataset(predictor, val, cfg, verbose=False, stream_depth=2)),
+    ):
+        printed = io.StringIO()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         zero_launch_counts()
         start = time.perf_counter()
-        state = train_model(cfg, train, val, state=state, checkpoint_base=os.path.join(root, "main"),
-                            steps_per_epoch=steps, rng_seed=SEED, history=history,
-                            metric_writer=lambda step, values: losses.append(values))
-        wall = time.perf_counter() - start
+        with contextlib.redirect_stdout(printed):
+            stats = run()
+        seconds = time.perf_counter() - start
         launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        n_steps = sum(h["steps"] for h in history)
-        want = (n_steps + eval_steps, 2 * n_steps + 2 * eval_steps, 2 * n_steps)
-        if n_steps != cfg.epochs * steps or launches != want:
-            raise AssertionError(f"train_model: {n_steps} steps, {eval_steps} eval steps launched (NMS, ROIAlign, "
-                                 f"backward) = {launches}; expected {want}")
-        if not all(np.isfinite(v) for values in losses for v in values.values()) or \
-                not all(np.isfinite(v) for h in history for k, v in h.items() if "loss" in k):
-            raise AssertionError(f"train_model: a loss is not finite: {losses} {history}")
-        names = [n for n, _ in state.model.named_parameters()]
-        unchanged = [n for n, p, q in zip(names, state.model.parameters(), before)
-                     if n.endswith("weight") and torch.equal(p.detach(), q)]
-        if unchanged:
-            raise AssertionError(f"train_model: weights unchanged: {unchanged}")
-        manager = ckpt_lib.make_manager(cfg, os.path.join(root, "main"))
-        files = sorted(f for f in os.listdir(manager.directory) if f.endswith(".pt"))
-        if manager.all_steps() != [0, 1] or len(files) != 2 or cfg.save_best_only is not True:
-            raise AssertionError(f"train_model: best-only checkpoints {manager.all_steps()}, files {files}")
-        log(f"  (a) {n_steps} steps and {eval_steps} eval steps launched NMS, ROIAlign forward, backward "
-            f"{launches} times, as expected; (b) finite losses (val_loss_sum by epoch "
-            f"{[round(h['val_loss_sum'], 4) for h in history]}), every weight moved; (c) best-only checkpoints "
-            f"of epochs {manager.all_steps()} on disk, ranked by val_loss_sum "
-            f"{[round(manager.metrics(e)['val_loss_sum'], 4) for e in manager.all_steps()]}")
-        final = {"step": state.step, "lr": state.opt_state.hyperparams["learning_rate"],
-                 "weights": [p.detach().clone() for p in state.model.parameters()]}
-        del state, before
+        if launches != (2 * batches, 2 * batches, 0):
+            raise AssertionError(f"evaluate ({name}): {batches} batches launched (NMS, ROIAlign, backward) = "
+                                 f"{launches}; expected 2, 2, 0 a batch")
+        if name == "cli":
+            if "WARNING" in printed.getvalue():
+                raise AssertionError("cli.evaluate found no checkpoint")
+            predictor = Predictor(cfg, state_dict, device=device)
+        routes[name] = (stats, seconds, launches)
+    dicts = {name: json.dumps(r[0], sort_keys=True) for name, r in routes.items()}
+    with open(out) as f:
+        written = json.dumps(json.load(f), sort_keys=True)
+    if len(set(dicts.values())) != 1 or written != dicts["cli"]:
+        raise AssertionError(f"evaluate: the AP dicts differ: {dicts}, written {written}")
+    for kind, stats in routes["cli"][0].items():
+        if not all(0.0 <= v <= 1.0 for k, v in stats.items() if not (k.startswith("AP_") and np.isnan(v))):
+            raise AssertionError(f"evaluate: {kind} stats outside [0, 1]: {stats}")
+    ap = {k: {m: round(v, 4) for m, v in d.items()} for k, d in routes["cli"][0].items()}
+    log(f"  {len(val)} images, {batches} batches of 2: the CLI's, detect's and detect_stream's AP dicts equal: {ap}")
+    log(f"  launches (NMS, ROIAlign forward, backward) per route: {routes['detect'][2]}; seconds per image: CLI "
+        f"{routes['cli'][1] / len(val):.3f} (restore and model build included), evaluate_dataset over detect "
+        f"{routes['detect'][1] / len(val):.3f}, over detect_stream {routes['stream'][1] / len(val):.3f} ({card})")
 
-        # (d) the SIGTERM drill
-        def send_sigterm(step, values):
-            if step == 2:  # the second step of epoch 1
-                os.kill(os.getpid(), signal.SIGTERM)
+    # detect_stream against detect over the same chunks, image for image, and
+    # their rates in turns (detect, stream, stream, detect)
+    images = [val.load_image(i % len(val)) for i in range(8)]
+    want = [r for k in range(0, len(images), 2) for r in predictor.detect(images[k:k + 2])]
+    got = list(predictor.detect_stream(images, batch_size=2, depth=2))
+    for g, w in zip(got, want):
+        if g.keys() != w.keys() or not all(np.array_equal(g[k], w[k]) for k in w):
+            raise AssertionError("detect_stream differs from detect over the same chunks")
+    rates = {"detect": [], "stream": []}
+    for name in ("detect", "stream", "stream", "detect"):
+        if name == "detect":
+            rates[name].append(images_per_s(lambda ims: [predictor.detect(ims[k:k + 2]) for k in range(0, 8, 2)],
+                                            images))
+        else:
+            rates[name].append(images_per_s(lambda ims: list(predictor.detect_stream(ims, 2, 2)), images))
+    log(f"  detect_stream equals detect over the same chunks on {len(images)} images "
+        f"({sum(len(r['class_ids']) for r in got)} detections at detection_min_confidence "
+        f"{cfg.detection_min_confidence}); images/s at batch 2: detect {rates['detect']}, detect_stream (depth 2) "
+        f"{rates['stream']} ({card})")
+    return routes["detect"][2], routes["stream"][2], cfg, state_dict
 
-        state, _ = run("drill", metric_writer=send_sigterm)
-        pre = ckpt_lib.make_preempt_manager(cfg, os.path.join(root, "drill"))
-        if state.step != 2 or pre.all_steps() != [0] or ckpt_lib.make_manager(cfg, os.path.join(root, "drill")).all_steps():
-            raise AssertionError(f"SIGTERM drill: stopped at step {state.step}, preemption checkpoints {pre.all_steps()}")
-        state, _ = run("drill")
-        if state.step != 2 + steps:
-            raise AssertionError(f"SIGTERM drill: resumed to step {state.step}, expected {2 + steps}")
-        log(f"  (d) SIGTERM at step 2 left a preemption checkpoint of epoch 0 (step 2); resume ran epoch 2 to "
-            f"step {state.step}")
-        del state
 
-        # (e) a run stopped at the epoch boundary, then resumed
-        def crash(step, values):
-            if step == steps + 1:
-                raise Stop
-
-        try:
-            run("boundary", metric_writer=crash)
-            raise AssertionError("the boundary run did not stop")
-        except Stop:
-            pass
-        saved = ckpt_lib.make_manager(cfg, os.path.join(root, "boundary"))
-        extra = saved.restore(0, "cpu")["extra"]
-        state, resumed = run("boundary")
-        lr = state.opt_state.hyperparams["learning_rate"]
-        unbroken_extra = manager.restore(1, "cpu")["extra"]
-        resumed_extra = saved.restore(1, "cpu")["extra"]
-        if (state.step, lr) != (final["step"], final["lr"]) or resumed_extra["bad_epochs"] != unbroken_extra["bad_epochs"] \
-                or resumed_extra["lr"] != unbroken_extra["lr"] or len(resumed) != 1:
-            raise AssertionError(f"epoch-boundary resume: step {state.step}, lr {lr}, plateau {resumed_extra}; the "
-                                 f"unbroken run: step {final['step']}, lr {final['lr']}, plateau {unbroken_extra}")
-        diff = max(float((p.detach() - q).abs().max()) for p, q in zip(state.model.parameters(), final["weights"]))
-        log(f"  (e) stopped at step {steps + 1}, resumed from epoch 0's checkpoint (step {steps}, plateau {extra}): "
-            f"step {state.step}, lr {lr:g}, plateau {resumed_extra}, as the unbroken run's (plateau "
-            f"{unbroken_extra}); weights within {diff:.3g} of the unbroken run's")
-        del state, final
-
-        step_ips = [h["steps"] * cfg.batch_size / h["train_seconds"] for h in history]
-        wait = [h["loader_wait_s"] / h["train_seconds"] for h in history]
-        log(f"  loader alone on the host (JPEG decode, resize, mini masks, batches of 2, no cache): "
-            f"{loader_ips:.2f} images/s ({card})")
-        log(f"  train_model: {step_ips[-1]:.2f} images/s over epoch 2's training steps ({step_ips[0]:.2f} in epoch "
-            f"1, its first step included); with validation and checkpoint {history[-1]['images_per_s']:.2f} and "
-            f"{history[0]['images_per_s']:.2f} images/s; {wall:.1f} s for the run ({card})")
-        log(f"  loader wait: {wait[-1]:.4f} of epoch 2's training time, {wait[0]:.4f} of epoch 1's ({card})")
-        log(f"  peak memory {peak:.0f} MiB in train_model ({card})")
-        return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def run_detect_cli(device, card, root, eval_cfg, state_dict):
+    """Phase 13: ``cli.detect.main`` on 2 JPEGs, against ``Predictor.detect``."""
+    log("== detect CLI: 2 JPEGs, --out")
+    size = eval_cfg.image_shape[0]
+    cfg = cli_detect.MaskRCNNConfig(backbone=eval_cfg.backbone, num_classes=81, image_shape=(size, size, 3),
+                                    image_min_dim=size, image_max_dim=size,
+                                    checkpoints_dir=os.path.join(root, "cli_detect"))
+    ckpt_lib.make_manager(cfg).save(0, {"step": 0, "model": state_dict, "opt_state": {
+        "count": 0, "hyperparams": {}, "slots": {}}}, {"val_loss_sum": 0.0})
+    rs = np.random.RandomState(SEED + 13)
+    paths = []
+    for i, hw in enumerate(((480, 640), (375, 500))):
+        paths.append(os.path.join(root, f"request_{i}.jpg"))
+        image_io.imwrite(paths[-1], smooth_image(rs, *hw))
+    out = os.path.join(root, "detect_out")
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        cli_detect.main(["--backbone", cfg.backbone, "--num_classes", "81", "--img_size", str(size),
+                         "--checkpoints_dir", cfg.checkpoints_dir, "--images", *paths, "--out", out,
+                         "--device", device.type])
+    launches = launch_counts()
+    if "WARNING" in printed.getvalue() or launches != (4, 4, 0):
+        raise AssertionError(f"cli.detect: {printed.getvalue()!r}, launches {launches}; expected (4, 4, 0)")
+    predictor = Predictor(cfg, state_dict, device=device)
+    counts = []
+    for i, path in enumerate(paths):
+        r = predictor.detect([image_io.imread(path)])[0]
+        base = os.path.join(out, f"request_{i}")
+        with open(base + ".json") as f:
+            written = json.load(f)
+        want = {"rois": r["rois"].tolist(), "class_ids": r["class_ids"].tolist(), "scores": r["scores"].tolist()}
+        if written != want or not os.path.getsize(base + "_det.png"):
+            raise AssertionError(f"cli.detect {path}: JSON {written} against Predictor.detect {want}")
+        counts.append(len(r["class_ids"]))
+    log(f"  JSON equal to Predictor.detect's results ({counts} detections), overlays written; launches "
+        f"{launches} ({card})")
 
 
 def main() -> None:
@@ -943,31 +1133,46 @@ def main() -> None:
     train_launches = run_training(state, step, batch, gen, card)
     del state, step, batch
     torch.cuda.empty_cache()
-    loop_launches = run_train_model(device, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        loop_launches, loop_cfg, val = run_train_model(device, card, root)
+        torch.cuda.empty_cache()
+        pretrained_launches = run_pretrained(device, card, root)
+        eval_launches, stream_launches, eval_cfg, state_dict = run_evaluate(device, card, root, loop_cfg, val)
+        run_detect_cli(device, card, root, eval_cfg, state_dict)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
+                    "pretrained_launches": pretrained_launches[name]}
+             for i, name in enumerate(("nms", "roi_align", "roi_align_backward"))}
 
     kernels = [
         dict(name="greedy_nms", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/nms.cu",
              replaces="maskrcnn_tf2_tpu/kernels/nms_pallas.py:29", launches=launches["nms"],
              train_launches=train_launches["nms"], train_model_launches=loop_launches["nms"], **nms_stats,
              library_ms=None,
-             train_ms=nms_train["ms"], train_bound_ms=nms_train["bound_ms"]),
+             train_ms=nms_train["ms"], train_bound_ms=nms_train["bound_ms"], **extra["nms"]),
         dict(name="pyramid_roi_align", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/roi_align.cu",
              replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:484",
              also_replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:224",
              launches=launches["roi_align"], train_launches=train_launches["roi_align"],
              train_model_launches=loop_launches["roi_align"],
-             **roi_stats, library_ms=None, train_ms=roi_train["ms"], train_bound_ms=roi_train["bound_ms"]),
+             **roi_stats, library_ms=None, train_ms=roi_train["ms"], train_bound_ms=roi_train["bound_ms"],
+             **extra["roi_align"]),
         dict(name="pyramid_roi_align_backward", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/roi_align.cu",
              replaces="maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:967",
              also_replaces=["maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:865",
                             "maskrcnn_tf2_tpu/kernels/roi_align_pallas.py:1316"],
              launches=train_launches["roi_align_backward"],
-             train_model_launches=loop_launches["roi_align_backward"], **bwd_stats, library_ms=None),
+             train_model_launches=loop_launches["roi_align_backward"], **bwd_stats, library_ms=None,
+             **extra["roi_align_backward"]),
     ]
     log(f"== done at {time.time() - t0:.1f} s; forward kernels' times per served batch of 2 images "
         f"(ms) and per training step (train_ms), the backward's per training step of 2 images (both "
         f"call sites summed); launches: serving's 4 requests, train_launches and the backward's: the 5 "
-        f"training steps; train_model_launches: train_model's 6 steps and 4 eval steps")
+        f"training steps; train_model_launches: train_model's 6 steps and 4 eval steps; eval_launches and "
+        f"stream_launches: evaluate_dataset over 4 images through detect and detect_stream; "
+        f"pretrained_launches: 2 fine-tune steps from a pretrained file")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

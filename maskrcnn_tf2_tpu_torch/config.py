@@ -230,3 +230,20 @@ class MaskRCNNConfig:
             raise ValueError(f"unknown config keys in {path}: {sorted(unknown)}")
         d.update(overrides)
         return cls(**d)
+
+
+def coco_config(**overrides) -> MaskRCNNConfig:
+    """The COCO preset (the JAX package's ``coco_config``, after the
+    reference's COCO_CONFIG): 81 classes, 512x512, 100 GT instances, 56x56
+    mini masks; ``overrides`` win."""
+    base = dict(
+        num_classes=81,
+        image_shape=(512, 512, 3),
+        image_min_dim=512,
+        image_max_dim=512,
+        max_gt_instances=100,
+        use_mini_masks=True,
+        mini_mask_shape=(56, 56),
+    )
+    base.update(overrides)
+    return MaskRCNNConfig(**base)

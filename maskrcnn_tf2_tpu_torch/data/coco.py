@@ -21,6 +21,24 @@ import numpy as np
 from maskrcnn_tf2_tpu_torch.data import raster
 from maskrcnn_tf2_tpu_torch.data.dataset import SegmentationDataset
 
+# The 80 COCO thing classes and the background, in the order of the
+# reference's COCO_CONFIG class dict.
+COCO_CLASS_NAMES = [
+    "background", "person", "bicycle", "car", "motorcycle", "airplane", "bus",
+    "train", "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella", "handbag",
+    "tie", "suitcase", "frisbee", "skis", "snowboard", "sports ball", "kite",
+    "baseball bat", "baseball glove", "skateboard", "surfboard",
+    "tennis racket", "bottle", "wine glass", "cup", "fork", "knife", "spoon",
+    "bowl", "banana", "apple", "sandwich", "orange", "broccoli", "carrot",
+    "hot dog", "pizza", "donut", "cake", "chair", "couch", "potted plant",
+    "bed", "dining table", "toilet", "tv", "laptop", "mouse", "remote",
+    "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
+    "refrigerator", "book", "clock", "vase", "scissors", "teddy bear",
+    "hair drier", "toothbrush",
+]
+
 
 def _decode_rle_counts(s: str) -> List[int]:
     """COCO compressed RLE counts string -> run lengths."""

@@ -5,12 +5,28 @@ RGB; ``cv2.imwrite`` at a JPEG quality), which the card's machine does not
 have; it has Pillow. Pillow is imported when a file is read or written, not
 when this module is imported. ``imread`` applies the EXIF orientation, as
 ``cv2.imread`` does by default, and turns grey, palette and alpha images into
-three RGB channels.
+three RGB channels. 16-bit samples become 8-bit ones shifted right by 8, as
+``cv2.imread(path, IMREAD_COLOR)`` makes them: Pillow's own conversion of a
+16-bit grey image clips at 255 instead.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _rawmode(tile) -> str:
+    args = tile[3]
+    return str(args[0] if isinstance(args, tuple) else args)
+
+
+def _sixteen_bit_grey(img) -> bool:
+    """Modes ``I;16*``, and ``I`` where the file holds 16-bit samples (a
+    16-bit PGM, say). Read before the pixels are loaded: loading clears
+    ``img.tile``."""
+    if img.mode.startswith("I;16"):
+        return True
+    return img.mode == "I" and any(_rawmode(t).startswith("I;16") for t in img.tile)
 
 
 def imread(path: str) -> np.ndarray:
@@ -19,7 +35,12 @@ def imread(path: str) -> np.ndarray:
     from PIL import Image, ImageOps
 
     with Image.open(path) as img:
-        return np.asarray(ImageOps.exif_transpose(img).convert("RGB"), dtype=np.uint8)
+        sixteen = _sixteen_bit_grey(img)
+        img = ImageOps.exif_transpose(img)
+        if sixteen:
+            grey = (np.asarray(img).astype(np.int64) >> 8).astype(np.uint8)
+            return np.repeat(grey[..., None], 3, axis=-1)
+        return np.asarray(img.convert("RGB"), dtype=np.uint8)
 
 
 def imwrite(path: str, image: np.ndarray, jpeg_quality: int = 95) -> None:

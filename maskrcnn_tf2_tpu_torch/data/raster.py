@@ -13,7 +13,9 @@ machine has no cv2. These functions follow OpenCV's own integer algorithms
   this gives cv2's pixels; an edge with an end outside runs on its clipped
   line, which agrees with cv2 but for a few pixels along the border;
 * ``fill_circle``: the midpoint circle's horizontal spans (``Circle``);
-* ``fill_rectangle``: the closed box between two corners.
+* ``fill_rectangle``: the closed box between two corners;
+* ``outline_rectangle``: ``cv2.rectangle`` with a thickness, a band along
+  each side and a filled disk on each corner (``PolyLine`` + ``ThickLine``).
 
 Points are ``(x, y)`` integer pixel centres, as cv2 takes them; the canvas is
 ``[H, W]`` or ``[H, W, C]`` and is filled in place and returned.
@@ -165,4 +167,26 @@ def fill_rectangle(canvas: np.ndarray, pt1, pt2, color: Color) -> np.ndarray:
     x1, x2 = sorted((int(pt1[0]), int(pt2[0])))
     y1, y2 = sorted((int(pt1[1]), int(pt2[1])))
     canvas[max(y1, 0) : max(y2 + 1, 0), max(x1, 0) : max(x2 + 1, 0)] = color
+    return canvas
+
+
+def outline_rectangle(canvas: np.ndarray, pt1, pt2, color: Color, thickness: int = 2) -> np.ndarray:
+    """``cv2.rectangle(canvas, pt1, pt2, color, thickness)`` with 8-connected
+    lines. OpenCV draws the closed polyline of the four corners: at a
+    thickness of 1 as Bresenham lines; above it each side as a convex quad
+    reaching ``(thickness + 1) // 2`` pixels to either side of the side
+    (``ThickLine``), a box here since the sides are axis-aligned, and a
+    filled circle of that radius on the side's end."""
+    x1, y1, x2, y2 = int(pt1[0]), int(pt1[1]), int(pt2[0]), int(pt2[1])
+    corners = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    if thickness <= 1:
+        for p0, p1 in zip(corners[-1:] + corners[:-1], corners):
+            _line(canvas, p0, p1, color)
+        return canvas
+    half = (thickness + 1) // 2
+    for (xa, ya), (xb, yb) in zip(corners[-1:] + corners[:-1], corners):
+        if (xa, ya) != (xb, yb):  # a side of no length has no quad
+            dy, dx = (half, 0) if ya == yb else (0, half)
+            fill_rectangle(canvas, (min(xa, xb) - dx, min(ya, yb) - dy), (max(xa, xb) + dx, max(ya, yb) + dy), color)
+        fill_circle(canvas, (xb, yb), half, color)
     return canvas

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -26,17 +26,20 @@ def export_coco_format(
     year: str = "2017",
     jpeg_quality: int = 95,
     max_images: Optional[int] = None,
+    class_names: Optional[Sequence[str]] = None,
 ) -> str:
     """Render ``dataset`` to ``root`` in the COCO instances layout; returns
     the annotations JSON path. Category ids are the dataset's internal ids
     (background excluded), so a model trained on ``dataset`` and one trained
-    on the export share class numbers."""
+    on the export share class numbers. ``class_names`` (background first, at
+    least the dataset's classes) replaces the dataset's names and may list
+    more categories than it uses."""
     img_dir = os.path.join(root, f"{subset}{year}")
     ann_dir = os.path.join(root, "annotations")
     os.makedirs(img_dir, exist_ok=True)
     os.makedirs(ann_dir, exist_ok=True)
     categories = [{"id": int(cid), "name": name, "supercategory": "shape"}
-                  for cid, name in enumerate(dataset.class_names) if cid != 0]
+                  for cid, name in enumerate(class_names or dataset.class_names) if cid != 0]
 
     images, annotations = [], []
     n = len(dataset) if max_images is None else min(max_images, len(dataset))

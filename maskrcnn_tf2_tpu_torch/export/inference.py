@@ -41,8 +41,9 @@ def unmold_detections(
 ) -> Dict[str, np.ndarray]:
     """One image's padded outputs -> original-image-space results.
 
-    ``detections [D, 6]`` normalized; ``masks [D, mh, mw]`` already gathered
-    at each detection's class on the device. Returns
+    ``detections [D, 6]`` normalized; ``masks [D, mh, mw, C]`` per class, or
+    ``[D, mh, mw]`` already gathered at each detection's class on the device
+    (the ``Predictor``'s path). Returns
     rois ``[N, 4]`` pixel int32, class_ids ``[N]``, scores ``[N]`` and masks
     ``[H0, W0, N]`` bool.
     """
@@ -52,6 +53,7 @@ def unmold_detections(
     boxes = detections[:n, :4].copy()
     class_ids = detections[:n, 4].astype(np.int32)
     scores = detections[:n, 5]
+    masks = masks[np.arange(n), :, :, class_ids] if masks.ndim == 4 else masks[:n]
 
     h, w = image_shape[0], image_shape[1]
     wy1, wx1, wy2, wx2 = window
@@ -66,7 +68,7 @@ def unmold_detections(
 
     areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
     keep = np.where(areas > 0)[0]
-    boxes, class_ids, scores, masks = boxes[keep], class_ids[keep], scores[keep], masks[:n][keep]
+    boxes, class_ids, scores, masks = boxes[keep], class_ids[keep], scores[keep], masks[keep]
 
     full_masks = np.zeros(tuple(original_shape[:2]) + (len(keep),), dtype=bool)
     for i in range(len(keep)):

@@ -1,6 +1,6 @@
-"""High-level inference API: ``Predictor.detect`` (counterpart of
-``maskrcnn_tf2_tpu/predictor.py``; streaming and data-parallel serving are
-not ported yet).
+"""High-level inference API: ``Predictor.detect`` and the pipelined
+``Predictor.detect_stream`` (counterpart of ``maskrcnn_tf2_tpu/predictor.py``;
+data-parallel serving is not ported yet).
 
 Host preprocessing -> one batched forward on the device (uint8 images go up,
 normalization happens there) -> the class-mask gather on the device -> host
@@ -9,7 +9,10 @@ unmold.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+import collections
+import itertools
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List, Mapping
 
 import numpy as np
 import torch
@@ -34,16 +37,84 @@ class Predictor:
         self.model.cast_for_serving_()
         self.device = self.model.device
 
+    def _forward(self, molded: np.ndarray, metas: np.ndarray):
+        """Detections ``[B, D, 6]`` and class masks ``[B, D, mh, mw]`` on the
+        device."""
+        out = self.model(torch.from_numpy(molded).to(self.device), torch.from_numpy(metas).to(self.device))
+        return out["detections"], gather_class_masks(out)
+
+    def _unmold(self, detections, masks, metas, shapes) -> List[Dict[str, np.ndarray]]:
+        return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])
+                for i, shape in enumerate(shapes)]
+
     @torch.no_grad()
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Run detection on a list of RGB uint8 images of any sizes."""
         molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(images)))
-        batch = torch.from_numpy(np.stack(molded)).to(self.device)
-        meta = torch.from_numpy(np.stack(metas)).to(self.device)
-        out = self.model(batch, meta)
-        detections = out["detections"].cpu().numpy()
-        masks = gather_class_masks(out).cpu().numpy()
-        return [
-            unmold_detections(detections[i], masks[i], img.shape, self.config.image_shape, metas[i][7:11])
-            for i, img in enumerate(images)
-        ]
+        metas = np.stack(metas)
+        detections, masks = self._forward(np.stack(molded), metas)
+        return self._unmold(detections.cpu().numpy(), masks.cpu().numpy(), metas, [img.shape for img in images])
+
+    @torch.no_grad()
+    def detect_stream(
+        self, images: Iterable[np.ndarray], batch_size: int = 8, depth: int = 2
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Pipelined detection over an image stream: one result dict per input
+        image, in order, equal to ``detect`` over the same chunks of
+        ``batch_size``.
+
+        Three stages: (1) ``process_input`` on one worker thread, at most
+        ``depth + 1`` chunks ahead (the input is read no further ahead than
+        that); (2) the forward and the class-mask gather issued from this
+        thread, their outputs copied into new pinned host tensors with
+        ``non_blocking=True`` and a CUDA event recorded after the copies, so
+        that up to ``depth`` batches stay in flight; (3) the oldest batch
+        drained: wait on its event, then unmold. The ragged tail is padded
+        with zero images and the last meta, so the shapes never change. On a
+        CPU device there is no event and the copies are plain.
+        """
+        cuda = self.device.type == "cuda"
+
+        def prep(chunk):
+            molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(chunk)))
+            pad = batch_size - len(chunk)
+            molded = list(molded) + [np.zeros_like(molded[0])] * pad
+            return np.stack(molded), np.stack(list(metas) + [metas[-1]] * pad), [img.shape for img in chunk]
+
+        def prepped():
+            it = iter(images)
+            ahead = collections.deque()
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                while True:
+                    chunk = list(itertools.islice(it, batch_size))
+                    if chunk:
+                        ahead.append(pool.submit(prep, chunk))
+                    if not ahead:
+                        return
+                    if not chunk or len(ahead) > depth + 1:
+                        yield ahead.popleft().result()
+
+        def launch(molded, metas):
+            detections, masks = self._forward(molded, metas)
+            if not cuda:
+                return detections.numpy(), masks.numpy(), None
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (detections, masks)]
+            for h, t in zip(host, (detections, masks)):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host[0].numpy(), host[1].numpy(), done
+
+        def drain(entry):
+            detections, masks, done, metas, shapes = entry
+            if done is not None:
+                done.synchronize()
+            return self._unmold(detections, masks, metas, shapes)
+
+        inflight: List = []
+        for molded, metas, shapes in prepped():
+            inflight.append(launch(molded, metas) + (metas, shapes))
+            if len(inflight) > depth:
+                yield from drain(inflight.pop(0))
+        for entry in inflight:
+            yield from drain(entry)

@@ -1,9 +1,10 @@
 """Seeded synthetic training data, for smoke runs and profiles on the card: a
-batch of tensors, or datasets of shapes images written as a COCO directory."""
+batch of tensors, datasets of shapes images written as a COCO directory, and
+a torchvision-keyed ResNet ``state_dict`` to stand in for ImageNet weights."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -11,6 +12,7 @@ import torch
 from maskrcnn_tf2_tpu_torch.data.coco import CocoDataset
 from maskrcnn_tf2_tpu_torch.data.synthetic import SyntheticShapesDataset
 from maskrcnn_tf2_tpu_torch.data.synthetic_coco import export_coco_format
+from maskrcnn_tf2_tpu_torch.models.backbones.resnet import RESNET_VARIANTS
 from maskrcnn_tf2_tpu_torch.ops.image import compose_image_meta
 
 
@@ -51,19 +53,67 @@ def synthetic_batch(config, batch_size: int, seed: int, device) -> Dict[str, tor
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def shapes_coco_datasets(root: str, counts=(12, 4), size: int = 512, seed: int = 0) -> List[CocoDataset]:
+def shapes_coco_datasets(root: str, counts=(12, 4), size: int = 512, seed: int = 0,
+                         class_names: Optional[Sequence[str]] = None) -> List[CocoDataset]:
     """``SyntheticShapesDataset`` sets of ``counts`` images (up to 6 shapes of
     3 classes each, ``size`` a side) written under ``root`` as the COCO
     subsets ``train``, ``val``, ... (JPEG images, RLE masks; needs Pillow) and
-    read back through ``CocoDataset``, the path a user's data takes."""
+    read back through ``CocoDataset``, the path a user's data takes.
+    ``class_names`` (background first; ``data.coco.COCO_CLASS_NAMES`` for
+    COCO's 80 categories) names the categories written, the shapes taking the
+    first three; by default they are the shapes'."""
     out = []
     for i, (n, subset) in enumerate(zip(counts, ("train", "val", "test"))):
         ds = SyntheticShapesDataset()
         ds.load_shapes(n, size, size, max_shapes=6, seed=seed + i)
         ds.prepare()
-        export_coco_format(ds, root, subset=subset)
+        export_coco_format(ds, root, subset=subset, class_names=class_names)
         coco = CocoDataset()
         coco.load_coco(root, subset)
         coco.prepare()
         out.append(coco)
     return out
+
+
+def torchvision_resnet_state_dict(backbone: str, seed: int) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` with torchvision's ResNet names and shapes (``conv1``,
+    ``bn1``, ``layer{s}.{b}.conv{i}``/``bn{i}``, ``downsample.0/1``,
+    ``num_batches_tracked``, the 1000-class ``fc``), filled from
+    ``RandomState(seed)``: kernels normal with std 1/sqrt(fan_in), batch-norm
+    scales and variances in [0.5, 1.5), biases and means normal with std 0.1."""
+    stages = RESNET_VARIANTS[backbone]["stage_sizes"]
+    expansion = 4 if RESNET_VARIANTS[backbone]["block"] == "bottleneck" else 1
+    rs = np.random.RandomState(seed)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(name, cout, cin, k):
+        sd[name + ".weight"] = torch.from_numpy(
+            (rs.normal(size=(cout, cin, k, k)) / np.sqrt(cin * k * k)).astype(np.float32))
+
+    def bn(name, c):
+        for leaf, draw in (("weight", lambda: rs.uniform(0.5, 1.5, c)), ("bias", lambda: rs.normal(0, 0.1, c)),
+                           ("running_mean", lambda: rs.normal(0, 0.1, c)),
+                           ("running_var", lambda: rs.uniform(0.5, 1.5, c))):
+            sd[f"{name}.{leaf}"] = torch.from_numpy(draw().astype(np.float32))
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, blocks in enumerate(stages, start=1):
+        width = 64 * 2 ** (s - 1)
+        for b in range(blocks):
+            pre = f"layer{s}.{b}"
+            convs = ([(width, 1), (width, 3), (width * 4, 1)] if expansion == 4 else [(width, 3), (width, 3)])
+            c = cin
+            for i, (cout, k) in enumerate(convs, start=1):
+                conv(f"{pre}.conv{i}", cout, c, k)
+                bn(f"{pre}.bn{i}", cout)
+                c = cout
+            if b == 0 and (s > 1 or expansion == 4):  # the shape of the shortcut changes
+                conv(f"{pre}.downsample.0", width * expansion, cin, 1)
+                bn(f"{pre}.downsample.1", width * expansion)
+            cin = width * expansion
+    sd["fc.weight"] = torch.from_numpy((rs.normal(size=(1000, cin)) / np.sqrt(cin)).astype(np.float32))
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd

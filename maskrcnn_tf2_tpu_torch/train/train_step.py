@@ -24,8 +24,9 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
-from maskrcnn_tf2_tpu_torch.device import DeviceLike
+from maskrcnn_tf2_tpu_torch.device import DeviceLike, resolve_device
 from maskrcnn_tf2_tpu_torch.losses import compute_losses, l2_reg_loss
+from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import init_backbone_weights
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.ops.augment import device_augment
 from maskrcnn_tf2_tpu_torch.ops.image import parse_image_meta
@@ -46,12 +47,14 @@ class TrainState:
 
 def create_train_state(config: MaskRCNNConfig, rng: torch.Generator, device: DeviceLike = None) -> TrainState:
     """A model with seeded random weights (``weights.lecun_init_``, drawn on
-    the CPU from ``rng``) and a fresh optimizer state. Load other weights
-    with ``state.model.load_state_dict`` before the first step."""
-    if config.backbone_init_weights not in (None, "", "none", "random"):
-        raise ValueError("pretrained backbone weights are not ported yet: load them with "
-                         "weights.flax_to_state_dict and state.model.load_state_dict")
-    model = lecun_init_(MaskRCNN(config, device=device), rng)
+    the CPU from ``rng``), its backbone then loaded from
+    ``config.backbone_init_weights`` when that names pretrained weights
+    (``models/backbones/pretrained.py``), moved to ``device``, and a fresh
+    optimizer state."""
+    device = resolve_device(device)
+    model = lecun_init_(MaskRCNN(config, device="cpu"), rng)
+    init_backbone_weights(model, config)
+    model.to(device)
     return TrainState(0, model, build_optimizer(config).init(list(model.parameters())))
 
 

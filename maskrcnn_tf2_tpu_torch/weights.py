@@ -19,6 +19,8 @@ It raises on a leaf that maps nowhere, on a shape that does not match, and
 on any parameter or buffer of the model that is left unassigned. With
 ``params_only=True`` it converts a ``{"params"}`` tree alone (a gradient
 tree, say) to the model's parameter names and checks only the parameters.
+``state_dict_to_flax`` is its inverse: a module's entries back to flax
+variables (``num_batches_tracked`` has no flax leaf and is dropped).
 """
 
 from __future__ import annotations
@@ -54,6 +56,42 @@ def _convert_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str
         if isinstance(module, nn.Linear):
             return "weight", value.T
     raise KeyError(f"no torch counterpart for leaf {name!r} of {type(module).__name__}")
+
+
+def _export_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str, str, np.ndarray]:
+    """The inverse of ``_convert_param``, and of the batch-norm statistics'
+    renaming: ``(collection, flax leaf, array)``."""
+    if isinstance(module, _BN):
+        leaf = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}[name]
+        return leaf + (value,)
+    if name == "bias":
+        return "params", "bias", value
+    if isinstance(module, nn.ConvTranspose2d):
+        return "params", "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if isinstance(module, nn.Conv2d):
+        return "params", "kernel", value.transpose(2, 3, 1, 0)
+    if isinstance(module, nn.Linear):
+        return "params", "kernel", value.T
+    raise KeyError(f"no flax counterpart for {name!r} of {type(module).__name__}")
+
+
+def state_dict_to_flax(model: nn.Module) -> Dict[str, Dict]:
+    """``model``'s parameters and batch-norm statistics as flax variables
+    ``{"params", "batch_stats"}`` (nested dicts of float32 numpy arrays), the
+    tree ``flax_to_state_dict`` reads."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in model.state_dict().items():
+        *path, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        coll, leaf, value = _export_param(model.get_submodule(".".join(path)), name, value)
+        node = out[coll]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return out
 
 
 def flax_to_state_dict(variables: Mapping, model: nn.Module, params_only: bool = False) -> Dict[str, torch.Tensor]:
