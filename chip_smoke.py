@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and training step on one CUDA
-card and hold its kernels against their plain PyTorch versions.
+card, on every backbone of the zoo, and hold its kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -92,13 +93,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. detect CLI -- ``cli.detect.main`` on 2 JPEGs it is handed, with ``--out``:
                the JSON equals ``Predictor.detect``'s results and the overlay
                PNGs exist; 2 NMS and 2 ROIAlign forward launches an image.
-14. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+14. backbone zoo -- launch counts set to 0, then (a) ``seresnet34``,
+               ``seresnext50``, ``senet154``, ``mobilenet``, ``mobilenetv2``
+               and ``efficientnetb0`` at the flagship's serving and training
+               configurations (512x512, 81 classes, bf16, 256-wide FPN and
+               heads, seeded random weights): 2 requests of 2 images through
+               ``Predictor.detect`` (exactly 2 NMS and 2 ROIAlign forward
+               launches each) and 2 ``make_train_step`` steps of batch 2
+               (exactly 1, 2, 2 launches each, finite losses, ``grad_finite``
+               1, every weight moved); latency, step time and peak memory;
+               (b) all 25 keys build on the card and serve one 256x256 image
+               (2 and 2 launches), with their parameter counts
+               (``utils/summary.py``) and latency; (c) seeded timm
+               EfficientNet-B0 and torchvision MobileNetV2 files through
+               ``create_train_state`` at full coverage, bit-equal to the
+               file, then one step each (1, 2, 2); the counts are read here.
+               (d) EfficientNet-B0 and SENet154's code at one block a stage
+               in float32, card (channels_last, TF32 off) against CPU with
+               the same weights: C1..C5 within 1e-4 of max |CPU|, on running
+               averages and on batch statistics.
+15. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -124,7 +145,9 @@ from maskrcnn_tf2_tpu_torch.export.inference import process_input
 from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.kernels import nms as nms_kernel
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as roi_kernel
-from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_resnet
+from maskrcnn_tf2_tpu_torch.models.backbones.factory import backbone_names, get_backbone
+from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_backbone
+from maskrcnn_tf2_tpu_torch.models.backbones.resnet import ResNet
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
@@ -132,9 +155,11 @@ from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
 from maskrcnn_tf2_tpu_torch.train.loop import train_model
-from maskrcnn_tf2_tpu_torch.train.synthetic import (shapes_coco_datasets, smooth_image, synthetic_batch,
-                                                     torchvision_resnet_state_dict)
+from maskrcnn_tf2_tpu_torch.train.synthetic import (resnet_state_dict, shapes_coco_datasets, smooth_image,
+                                                     synthetic_batch, timm_efficientnet_state_dict,
+                                                     torchvision_mobilenet_v2_state_dict)
 from maskrcnn_tf2_tpu_torch.train.train_step import _loss, create_train_state, make_train_step
+from maskrcnn_tf2_tpu_torch.utils.summary import count_params
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
 SEED = 0
@@ -889,7 +914,7 @@ def run_pretrained(device, card, root):
     launch counts of its 2 steps."""
     log("== pretrained: a seeded torchvision-keyed ResNet-50 state_dict into the flagship's training state")
     path = os.path.join(root, "resnet50.pth")
-    sd = torchvision_resnet_state_dict("resnet50", SEED + 12)
+    sd = resnet_state_dict("resnet50", SEED + 12)
     torch.save(sd, path)
     mib = os.path.getsize(path) / 2**20
     tcfg = flagship_train_config().replace(backbone_init_weights=path)
@@ -902,8 +927,8 @@ def run_pretrained(device, card, root):
     if "265/265 leaves" not in coverage:
         raise AssertionError(f"pretrained coverage: {coverage!r}; expected 265/265")
     got = state.model.state_dict()
-    differ = [k for k, v in convert_torch_resnet(sd).items() if not torch.equal(got["backbone." + k].cpu(), v)]
-    if differ or len(convert_torch_resnet(sd)) != 265:
+    differ = [k for k, v in convert_torch_backbone(sd).items() if not torch.equal(got["backbone." + k].cpu(), v)]
+    if differ or len(convert_torch_backbone(sd)) != 265:
         raise AssertionError(f"pretrained: backbone entries differ from the file's: {differ[:5]}")
     step = make_train_step(tcfg)
     batch = synthetic_batch(tcfg, 2, SEED + 6, device)
@@ -1056,6 +1081,197 @@ def run_detect_cli(device, card, root, eval_cfg, state_dict):
         f"{launches} ({card})")
 
 
+# ---------------------------------------------------------------------------
+# the backbone zoo
+# ---------------------------------------------------------------------------
+
+ZOO_FULL_WIDTH = ("seresnet34", "seresnext50", "senet154", "mobilenet", "mobilenetv2", "efficientnetb0")
+
+
+def seeded_predictor(cfg, device):
+    model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED))
+    params = count_params(model)
+    return Predictor(cfg, model.state_dict(), device=device), params
+
+
+def serve_counted(predictor, images, cfg):
+    """One request through ``Predictor.detect``; it must launch NMS and the
+    ROIAlign forward twice each. Returns its latency in ms."""
+    before = launch_counts()
+    start = time.perf_counter()
+    results = predictor.detect(images)  # returns host arrays: synchronized
+    ms = (time.perf_counter() - start) * 1e3
+    rose = tuple(a - b for a, b in zip(launch_counts(), before))
+    if rose != (2, 2, 0):
+        raise AssertionError(f"{cfg.backbone}: a request launched (NMS, ROIAlign, backward) = {rose}; expected (2, 2, 0)")
+    check_results(results, images, cfg)
+    return ms
+
+
+def train_counted(state, step, batch, gen, steps):
+    """``steps`` training steps; each must launch (NMS, ROIAlign forward,
+    backward) = (1, 2, 2), give finite losses and ``grad_finite`` 1. Returns
+    the step times in ms and the last losses."""
+    times = []
+    for i in range(steps):
+        before = launch_counts()
+        start = time.perf_counter()
+        state, losses = step(state, batch, rng=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        values = {k: float(v) for k, v in losses.items()}
+        rose = tuple(a - b for a, b in zip(launch_counts(), before))
+        name = state.model.config.backbone
+        if rose != (1, 2, 2):
+            raise AssertionError(f"{name} step {i}: launched (NMS, ROIAlign, backward) = {rose}; expected (1, 2, 2)")
+        if not all(np.isfinite(v) for v in values.values()) or values["grad_finite"] != 1.0:
+            raise AssertionError(f"{name} step {i}: {values}")
+    return times, values
+
+
+def zoo_full_width(device, card, requests):
+    """Phase 14a: each of ``ZOO_FULL_WIDTH`` at the flagship's serving and
+    training configurations: 2 requests and 2 training steps."""
+    log("== zoo, full width: 512x512, 81 classes, bf16, 256-wide FPN and heads; 2 requests of 2 images and 2 "
+        "training steps of batch 2 each, seeded random weights")
+    for name in ZOO_FULL_WIDTH:
+        cfg = flagship_config().replace(backbone=name)
+        predictor, params = seeded_predictor(cfg, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        latencies = [serve_counted(predictor, images, cfg) for images in requests[:2]]
+        serve_peak = torch.cuda.max_memory_allocated() / 2**20
+        del predictor
+        torch.cuda.empty_cache()
+
+        tcfg = flagship_train_config().replace(backbone=name)
+        gen = torch.Generator().manual_seed(SEED)
+        state = create_train_state(tcfg, gen, device=device)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        step, batch = make_train_step(tcfg), synthetic_batch(tcfg, 2, SEED + 6, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, values = train_counted(state, step, batch, gen, 2)
+        train_peak = torch.cuda.max_memory_allocated() / 2**20
+        unchanged = [n for (n, p), q in zip(state.model.named_parameters(), before)
+                     if n.endswith("weight") and torch.equal(p.detach(), q)]
+        if unchanged:
+            raise AssertionError(f"{name}: weights unchanged after 2 steps: {unchanged[:5]}")
+        log(f"  {name}: {params:,d} parameters; requests {latencies[0]:.1f} (the model's first), "
+            f"{latencies[1]:.1f} ms, peak {serve_peak:.0f} MiB; training steps {times[0]:.1f} (the first), "
+            f"{times[1]:.1f} ms, peak {train_peak:.0f} MiB, loss_sum {values['loss_sum']:.4f}, every weight moved "
+            f"({card})")
+        del state, step, batch, before
+        torch.cuda.empty_cache()
+
+
+def zoo_sweep(device, card):
+    """Phase 14b: every key builds on the card and serves one request of one
+    256x256 image."""
+    log("== zoo sweep: all 25 keys, one request of 1 image at 256x256 each (bf16, 81 classes; the latency is "
+        "the model's first request)")
+    rs = np.random.RandomState(SEED + 14)
+    image = smooth_image(rs, 256, 256)
+    for name in backbone_names():
+        cfg = flagship_config().replace(backbone=name, image_shape=(256, 256, 3), image_min_dim=256,
+                                        image_max_dim=256)
+        predictor, params = seeded_predictor(cfg, device)
+        ms = serve_counted(predictor, [image], cfg)
+        log(f"  {name:15s} {params:>12,d} parameters  {ms:8.1f} ms")
+        del predictor
+    torch.cuda.empty_cache()
+    log(f"  ({card})")
+
+
+def zoo_pretrained(device, card, root):
+    """Phase 14c: a seeded timm EfficientNet-B0 file and a torchvision
+    MobileNetV2 file through ``create_train_state`` at full coverage, bit-equal
+    to the file, then one training step each."""
+    log("== zoo pretrained: seeded timm efficientnet_b0 and torchvision mobilenet_v2 state_dicts into the "
+        "flagship's training state")
+    for name, sd, total in (("efficientnetb0", timm_efficientnet_state_dict("efficientnetb0", SEED + 15), 304),
+                            ("mobilenetv2", torchvision_mobilenet_v2_state_dict(SEED + 16), 255)):
+        path = os.path.join(root, f"{name}.pth")
+        torch.save(sd, path)
+        tcfg = flagship_train_config().replace(backbone=name, backbone_init_weights=path)
+        printed = io.StringIO()
+        gen = torch.Generator().manual_seed(SEED)
+        with contextlib.redirect_stdout(printed):
+            state = create_train_state(tcfg, gen, device=device)
+        coverage = printed.getvalue().strip()
+        if f"{total}/{total} leaves" not in coverage:
+            raise AssertionError(f"{name}: pretrained coverage {coverage!r}; expected {total}/{total}")
+        got = state.model.state_dict()
+        converted = convert_torch_backbone(sd)
+        differ = [k for k, v in converted.items() if not torch.equal(got["backbone." + k].cpu(), v)]
+        if differ or len(converted) != total:
+            raise AssertionError(f"{name}: backbone entries differ from the file's: {differ[:5]}")
+        _, values = train_counted(state, make_train_step(tcfg), synthetic_batch(tcfg, 2, SEED + 6, device), gen, 1)
+        log(f"  {name}: {coverage}; every backbone entry equals the file's bit for bit; 1 step: loss_sum "
+            f"{values['loss_sum']:.4f}, grad_finite 1, launches (1, 2, 2) ({card})")
+        del state
+        torch.cuda.empty_cache()
+
+
+def zoo_cross_check(device):
+    """Phase 14d: small float32 backbones with the same seeded weights on the
+    card (channels_last, TF32 off) and on the CPU: C1..C5 within 1e-4 of max
+    |CPU|, with the batch norms on their running averages (randomised) and on
+    batch statistics. EfficientNet-B0 runs cuDNN's 3x3 and 5x5 depthwise
+    convs, SENet154's code at one block a stage its grouped 64x4d convs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(SEED + 17).normal(size=(2, 3, 128, 128)).astype(np.float32))
+    for name, make in (("efficientnetb0", lambda: get_backbone("efficientnetb0")),
+                       ("senet154, one block a stage", lambda: ResNet(
+                           stage_sizes=(1, 1, 1, 1), block="bottleneck", groups=64, base_width=4, use_se=True,
+                           deep_stem=True))):
+        cpu = lecun_init_(make(), torch.Generator().manual_seed(SEED))
+        g = torch.Generator().manual_seed(SEED + 1)
+        with torch.no_grad():
+            for m in cpu.modules():
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                    for t, lo, hi in ((m.weight, 0.5, 1.5), (m.running_var, 0.5, 1.5)):
+                        t.copy_(torch.rand(t.shape, generator=g) * (hi - lo) + lo)
+                    for t in (m.bias, m.running_mean):
+                        t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+        card = copy.deepcopy(cpu).to(device, memory_format=torch.channels_last)
+        worst = {}
+        for mode in ("running averages", "batch statistics"):
+            train = mode == "batch statistics"
+            with torch.no_grad():
+                want = cpu.train(train)(x)
+                got = card.train(train)(x.to(device).contiguous(memory_format=torch.channels_last))
+            for level, ref in want.items():
+                err = float((got[level].cpu() - ref).abs().max() / ref.abs().max())
+                worst[mode] = max(worst.get(mode, 0.0), err)
+                if not err <= 1e-4:
+                    raise AssertionError(f"{name} ({mode}): {level} differs by {err} of max |CPU| between card and CPU")
+        log(f"== zoo cross-check, {name}, float32 at 128x128, card (channels_last, TF32 off) vs CPU: C1..C5 within "
+            + ", ".join(f"{v:.3g} on {k}" for k, v in worst.items()))
+
+
+def run_zoo(device, card, root, requests):
+    """Phase 14. Returns the launch counts of its main path (14a-14c)."""
+    seconds = [time.perf_counter()]
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    zoo_full_width(device, card, requests)
+    seconds.append(time.perf_counter())
+    zoo_sweep(device, card)
+    seconds.append(time.perf_counter())
+    zoo_pretrained(device, card, root)
+    launches = launch_counts()
+    seconds.append(time.perf_counter())
+    zoo_cross_check(device)
+    seconds.append(time.perf_counter())
+    parts = ", ".join(f"{name} {b - a:.1f} s" for name, a, b in zip(("full width", "sweep", "pretrained", "cross-check"),
+                                                                    seconds, seconds[1:]))
+    log(f"== zoo phase done in {seconds[-1] - seconds[0]:.1f} s ({parts}); launches (NMS, ROIAlign forward, "
+        f"backward) {launches}")
+    return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
@@ -1140,10 +1356,11 @@ def main() -> None:
         pretrained_launches = run_pretrained(device, card, root)
         eval_launches, stream_launches, eval_cfg, state_dict = run_evaluate(device, card, root, loop_cfg, val)
         run_detect_cli(device, card, root, eval_cfg, state_dict)
+        zoo_launches = run_zoo(device, card, root, requests)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
-                    "pretrained_launches": pretrained_launches[name]}
+                    "pretrained_launches": pretrained_launches[name], "zoo_launches": zoo_launches[name]}
              for i, name in enumerate(("nms", "roi_align", "roi_align_backward"))}
 
     kernels = [
@@ -1172,7 +1389,9 @@ def main() -> None:
         f"call sites summed); launches: serving's 4 requests, train_launches and the backward's: the 5 "
         f"training steps; train_model_launches: train_model's 6 steps and 4 eval steps; eval_launches and "
         f"stream_launches: evaluate_dataset over 4 images through detect and detect_stream; "
-        f"pretrained_launches: 2 fine-tune steps from a pretrained file")
+        f"pretrained_launches: 2 fine-tune steps from a pretrained file; zoo_launches: the backbone zoo's "
+        f"{2 * len(ZOO_FULL_WIDTH)} requests and {2 * len(ZOO_FULL_WIDTH)} steps at full width, "
+        f"{len(backbone_names())} requests of the sweep and 2 steps from pretrained files")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

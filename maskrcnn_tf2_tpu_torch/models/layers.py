@@ -11,7 +11,8 @@ dtype at use (``compute_dtype``), so gradients and optimizer updates stay
 float32. Casting a tensor to its own dtype is free, which a serving copy
 with its weights already in the compute dtype uses (``MaskRCNN.cast_for_serving_``).
 
-``BatchNorm`` is flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``: in
+``BatchNorm`` is flax's ``BatchNorm(momentum=0.9, epsilon=eps)`` (1e-5 in the
+ResNet family, 1e-3 in MobileNet and EfficientNet, as in the JAX package): in
 training mode it normalizes with the biased batch variance and updates
 ``running = 0.9 * running + 0.1 * batch`` with that biased variance (torch's
 own module would use the unbiased one); statistics are float32 over a bf16
@@ -54,10 +55,12 @@ class Conv2d(nn.Conv2d):
 
 
 class SameConv2d(Conv2d):
-    """``Conv2d`` with flax's "SAME" padding (square kernel and stride)."""
+    """``Conv2d`` with flax's "SAME" padding (square kernel and stride);
+    ``groups`` as flax's ``feature_group_count`` (``groups == in_channels``
+    is a depthwise convolution)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1, bias=True):
-        super().__init__(in_channels, out_channels, kernel_size, stride, padding=0, bias=bias)
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, bias=True, groups=1):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding=0, bias=bias, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(same_pad(x, self.kernel_size[0], self.stride[0]))
@@ -83,11 +86,11 @@ FLAX_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
-    """Flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel axis of
+    """Flax ``BatchNorm(momentum=0.9, epsilon=eps)`` over the channel axis of
     ``[N, C]`` or ``[N, C, H, W]``; float32 parameters and statistics."""
 
-    def __init__(self, channels: int):
-        super().__init__(channels, eps=1e-5, momentum=1.0 - FLAX_MOMENTUM)
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__(channels, eps=eps, momentum=1.0 - FLAX_MOMENTUM)
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() not in (2, 4):
@@ -112,3 +115,22 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
 def activation(leaky: bool):
     return (lambda v: F.leaky_relu(v, 0.2)) if leaky else F.relu
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu6``: hardtanh, whose gradient is 0 at both 0 and 6 as
+    JAX's is (``torch.clamp`` would pass it at its bounds, and a bf16
+    network meets 6.0 exactly)."""
+    return F.relu6(x)
+
+
+swish = F.silu
+
+
+def squeeze_excite(x: torch.Tensor, reduce: nn.Module, expand: nn.Module, act) -> torch.Tensor:
+    """Channel attention as the JAX package computes it: the spatial mean in
+    float32, the two dense layers (``reduce``, ``act``, ``expand``) in the
+    compute dtype, the sigmoid in float32, then ``x`` scaled per channel."""
+    s = x.to(torch.float32).mean((2, 3)).to(x.dtype)
+    s = expand(act(reduce(s)))
+    return x * torch.sigmoid(s.to(torch.float32)).to(x.dtype)[:, :, None, None]

@@ -1,8 +1,8 @@
 """Mask R-CNN forward, inference and training (counterpart of
 ``models/mask_rcnn.py``).
 
-normalize -> ResNet C2..C5 -> FPN P2..P6 -> shared RPN head -> proposals
-(exact top-k, decode, clip, NMS kernel), then
+normalize -> backbone C2..C5 (any of the 25 keys) -> FPN P2..P6 -> shared
+RPN head -> proposals (exact top-k, decode, clip, NMS kernel), then
 
 - inference: 7x7 pyramid ROIAlign kernel -> classifier -> class-offset NMS
   kernel -> 14x14 pyramid ROIAlign kernel -> mask head;
@@ -71,8 +71,7 @@ class MaskRCNN(nn.Module):
         self.config = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.backbone = get_backbone(cfg.backbone, leaky_relu=cfg.resnet_leaky_relu)
-        c5 = self.backbone.out_channels
-        self.fpn = FPN((c5 // 8, c5 // 4, c5 // 2, c5), cfg.top_down_pyramid_size)
+        self.fpn = FPN(self.backbone.endpoint_channels, cfg.top_down_pyramid_size)
         self.rpn = RPNHead(cfg.top_down_pyramid_size, cfg.anchors_per_location, conv_channels=512)
         self.classifier = FPNClassifierHead(
             cfg.top_down_pyramid_size, cfg.num_classes, cfg.pool_size,

@@ -1,10 +1,11 @@
 """Where the device time of one served batch goes, on a CUDA card.
 
-    python -m maskrcnn_tf2_tpu_torch.profile_serving [--batch 2] [--reps 10]
+    python -m maskrcnn_tf2_tpu_torch.profile_serving [--batch 2] [--reps 10] [--backbone KEY]
     python -m maskrcnn_tf2_tpu_torch.profile_serving --stream 16 [--depth 2] [--min-confidence 0.7]
 
 Builds the flagship predictor (ResNet-50-FPN, 512x512, 81 classes, bf16,
-seeded random weights, ``detection_min_confidence=0`` so every stage works)
+seeded random weights, ``detection_min_confidence=0`` so every stage works;
+``--backbone`` swaps in another of the 25 backbones)
 and reports, with the card's name and power limit:
 
 - the device forward of one batch (CUDA events over ``--reps`` forwards,
@@ -57,6 +58,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backbone", default="resnet50", help="any key of models/backbones/factory.py::backbone_names()")
     ap.add_argument("--stream", type=int, default=0, metavar="N", help="compare detect_stream on N images")
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--min-confidence", type=float, default=0.0)
@@ -65,7 +67,7 @@ def main() -> None:
         raise SystemExit("profile_serving needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = MaskRCNNConfig(image_shape=(512, 512, 3), num_classes=81, backbone="resnet50",
+    cfg = MaskRCNNConfig(image_shape=(512, 512, 3), num_classes=81, backbone=args.backbone,
                          compute_dtype="bfloat16", detection_min_confidence=args.min_confidence)
     model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(args.seed))
     pred = Predictor(cfg, model.state_dict(), device="cuda")
@@ -112,7 +114,7 @@ def main() -> None:
     busy_us = sum(device_us.values())
 
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"batch {args.batch} x 480x640 -> 512x512, bf16")
+    print(f"{args.backbone}, batch {args.batch} x 480x640 -> 512x512, bf16")
     print(f"device forward: {fwd_ms:.3f} ms per batch (CUDA events, mean of {args.reps})")
     print(f"one request on the host clock: preprocess {t_pre * 1e3:.1f} ms, forward + fetch "
           f"{t_fwd * 1e3:.1f} ms, unmold {t_unmold * 1e3:.1f} ms "

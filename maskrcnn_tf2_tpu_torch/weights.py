@@ -7,11 +7,14 @@
 of module found there:
 
 - ``Conv2d``: HWIO -> OIHW (this covers the RPN's ``_Conv1x1Params`` pair and
-  the mask head's ``_MaskProj``, both ``[1, 1, in, out]``);
+  the mask head's ``_MaskProj``, both ``[1, 1, in, out]``); a grouped kernel
+  ``[kh, kw, in / groups, out]`` becomes ``[out, in / groups, kh, kw]`` by the
+  same transpose, a depthwise ``[kh, kw, 1, C]`` ``[C, 1, kh, kw]``;
 - ``ConvTranspose2d``: flax applies its kernel spatially flipped, so
   ``W[c, f, i, j] = K[1 - i, 1 - j, c, f]``;
 - ``Linear``: ``[in, out]`` -> ``[out, in]`` (the classifier's FC on the
-  pooled patch keeps its (P, P, C) row order);
+  pooled patch keeps its (P, P, C) row order; the backbones' squeeze-excite
+  ``fc1``/``fc2`` and ``se_reduce``/``se_expand`` Dense layers too);
 - batch norm: scale/bias/mean/var -> weight/bias/running_mean/running_var,
   and ``num_batches_tracked`` is set to 0.
 
@@ -78,8 +81,9 @@ def _export_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str,
 
 def state_dict_to_flax(model: nn.Module) -> Dict[str, Dict]:
     """``model``'s parameters and batch-norm statistics as flax variables
-    ``{"params", "batch_stats"}`` (nested dicts of float32 numpy arrays), the
-    tree ``flax_to_state_dict`` reads."""
+    ``{"params", "batch_stats"}`` (nested dicts of float32 numpy arrays, copies
+    that later updates of the model leave alone), the tree
+    ``flax_to_state_dict`` reads."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for key, tensor in model.state_dict().items():
         *path, name = key.split(".")
@@ -90,7 +94,7 @@ def state_dict_to_flax(model: nn.Module) -> Dict[str, Dict]:
         node = out[coll]
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[leaf] = np.array(value, order="C")  # a copy: a CPU model's arrays would alias its tensors
     return out
 
 
@@ -146,7 +150,8 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module, params_only: bool =
 def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights at the scale of the JAX package's initializers:
     kernels normal with std 1/sqrt(fan_in), biases zero, batch norm the
-    identity (scale 1, bias 0, mean 0, var 1). Draws on the CPU from
+    identity (scale 1, bias 0, mean 0, var 1). A grouped conv's fan-in is
+    ``in / groups * kh * kw``, as flax's. Draws on the CPU from
     ``generator``, so a seed gives the same weights on every device."""
     for module in model.modules():
         if isinstance(module, _BN):

@@ -20,7 +20,7 @@ from maskrcnn_tf2_tpu.models.backbones.resnet import ResNet as JaxResNet
 from maskrcnn_tf2_tpu.ops.image import compose_image_meta
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
-from maskrcnn_tf2_tpu_torch.models.backbones.factory import get_backbone
+from maskrcnn_tf2_tpu_torch.models.backbones.factory import backbone_names, get_backbone
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.weights import flax_to_state_dict, lecun_init_
 
@@ -141,8 +141,12 @@ def test_resnet50_bottleneck_matches():
 
 
 def test_factory_names_unported_backbones():
-    with pytest.raises(ValueError, match="not ported"):
-        get_backbone("mobilenetv2")
+    """Every key of the JAX package's zoo is ported; an unknown key raises,
+    naming the 25."""
+    with pytest.raises(ValueError, match="unknown backbone 'resnet999'") as err:
+        get_backbone("resnet999")
+    names = backbone_names()
+    assert len(names) == 25 and str(names) in str(err.value)
 
 
 def test_lecun_init_is_seeded():

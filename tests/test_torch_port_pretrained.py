@@ -8,8 +8,9 @@ and ResNet-50 ``state_dict``s of seeded random tensors saved with
 bare backbone), and ``'imagenet'`` through ``MASKRCNN_TPU_WEIGHTS_DIR``. The
 JAX variables, bridged by ``weights.flax_to_state_dict``, equal the port's
 entries exactly, and both packages print the same ``loaded/total``. A
-wrong-backbone file and a MobileNet layout raise in both; an ``.npz`` shape
-mismatch raises and a ``.pt`` one is skipped in both.
+wrong-backbone file raises in both and a torchvision MobileNet V2 file loads
+in both; an ``.npz`` shape mismatch raises and a ``.pt`` one is skipped in
+both. ``tests/test_torch_port_zoo_pretrained.py`` holds the other layouts.
 """
 
 import pickle
@@ -28,7 +29,7 @@ from maskrcnn_tf2_tpu.ops.image import compose_image_meta
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.models.backbones import pretrained
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
-from maskrcnn_tf2_tpu_torch.train.synthetic import torchvision_resnet_state_dict
+from maskrcnn_tf2_tpu_torch.train.synthetic import resnet_state_dict, torchvision_mobilenet_v2_state_dict
 from maskrcnn_tf2_tpu_torch.train.train_step import create_train_state
 from maskrcnn_tf2_tpu_torch.weights import flax_to_state_dict, lecun_init_, state_dict_to_flax
 
@@ -94,7 +95,7 @@ def test_torchvision_file_loads_as_in_jax(tmp_path, capsys, backbone):
     with the same coverage (every leaf: 100 for ResNet-18, 265 for ResNet-50,
     ``num_batches_tracked`` not counted)."""
     path = str(tmp_path / f"{backbone}.pth")
-    torch.save(torchvision_resnet_state_dict(backbone, seed=5), path)
+    torch.save(resnet_state_dict(backbone, seed=5), path)
     jvars = jax_load(backbone, path)
     model = port_state(backbone, path)
     jax_line, port_line = printed_coverage(capsys)
@@ -106,7 +107,7 @@ def test_torchvision_file_loads_as_in_jax(tmp_path, capsys, backbone):
 
 def test_non_backbone_entries_keep_their_seeded_draws(tmp_path):
     path = str(tmp_path / "r18.pth")
-    torch.save(torchvision_resnet_state_dict("resnet18", seed=5), path)
+    torch.save(resnet_state_dict("resnet18", seed=5), path)
     loaded, fresh = port_state("resnet18", path).state_dict(), port_state("resnet18").state_dict()
     heads = [k for k in fresh if not k.startswith("backbone.")]
     assert heads and all(torch.equal(loaded[k], fresh[k]) for k in heads)
@@ -176,11 +177,13 @@ def test_imagenet_resolves_through_the_weights_dir(tmp_path, monkeypatch, capsys
     assert_backbone_equal(state_dict_to_flax(model), loaded)
 
 
-def test_wrong_backbone_and_mobilenet_files_raise_in_both(tmp_path):
+def test_wrong_backbone_and_mobilenet_files_raise_in_both(tmp_path, capsys):
     """ResNet-18 weights for ResNet-50 cover the same few leaves in both
-    packages and raise; a MobileNet V2 layout raises in both."""
+    packages and raise. A torchvision MobileNet V2 file, refused before the
+    zoo was ported, loads into a ``mobilenetv2`` model in both packages with
+    the same coverage (every leaf) and the same values."""
     r18 = str(tmp_path / "r18.pth")
-    torch.save(torchvision_resnet_state_dict("resnet18", seed=1), r18)
+    torch.save(resnet_state_dict("resnet18", seed=1), r18)
     messages = []
     for load in (lambda: jax_load("resnet50", r18), lambda: port_state("resnet50", r18)):
         with pytest.raises(ValueError, match="covered only") as err:
@@ -188,11 +191,12 @@ def test_wrong_backbone_and_mobilenet_files_raise_in_both(tmp_path):
         messages.append(str(err.value).split(" backbone leaves")[0])
     assert messages[0] == messages[1]
     mobilenet = str(tmp_path / "mnv2.pth")
-    torch.save({"features.0.0.weight": torch.zeros(32, 3, 3, 3), "features.0.1.weight": torch.ones(32)}, mobilenet)
-    with pytest.raises(ValueError):
-        jax_load("resnet18", mobilenet)
-    with pytest.raises(ValueError, match="ROADMAP A.7"):
-        port_state("resnet18", mobilenet)
+    torch.save(torchvision_mobilenet_v2_state_dict(seed=1), mobilenet)
+    jvars = jax_load("mobilenetv2", mobilenet)
+    model = port_state("mobilenetv2", mobilenet)
+    jax_line, port_line = printed_coverage(capsys)
+    assert jax_line == port_line == "loaded pretrained backbone: 255/255"
+    assert_backbone_equal(jvars, model)
 
 
 def test_shape_mismatch_raises_for_npz_and_is_skipped_for_pt(tmp_path, capsys):
@@ -201,7 +205,7 @@ def test_shape_mismatch_raises_for_npz_and_is_skipped_for_pt(tmp_path, capsys):
     for load in (lambda: jax_load("resnet18", npz), lambda: port_state("resnet18", npz)):
         with pytest.raises(ValueError, match="shape mismatch"):
             load()
-    sd = torchvision_resnet_state_dict("resnet18", seed=2)
+    sd = resnet_state_dict("resnet18", seed=2)
     sd["conv1.weight"] = torch.zeros(64, 3, 3, 3)  # one leaf of 100 misses: 99/100 passes the 90 % rule
     pt = str(tmp_path / "one_off.pt")
     torch.save(sd, pt)
