@@ -74,7 +74,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                the loader's images/s alone on the host, train_model's
                images/s, the share of the loop's time spent waiting on the
                loader and peak memory, each with the card line. The
-               directory stays until phase 13 is done.
+               directory stays until phase 15 is done.
 11. pretrained -- a seeded torchvision-keyed ResNet-50 ``state_dict`` saved to
                a ``.pth`` (``train/synthetic.py``) loads through
                ``create_train_state`` at the flagship's training config on the
@@ -112,7 +112,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                in float32, card (channels_last, TF32 off) against CPU with
                the same weights: C1..C5 within 1e-4 of max |CPU|, on running
                averages and on batch statistics.
-15. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+15. train CLI -- ``cli.coco_train.main`` at the flagship's widths (ResNet-50,
+               512x512, batch 2, 81 classes, the CLI's ``coco_config``) on
+               phase 10's COCO directory: 6 training and 2 validation images,
+               2 epochs, host augmentation with the weather and extended sets,
+               TensorBoard when the package is there (the script says whether
+               it is). Holds: launch counts set to 0, then exactly steps x
+               (1, 2, 2) plus eval steps x (1, 2, 0); finite losses; a
+               best-only checkpoint in the directory the configuration's md5
+               names; the run again from a ``--config`` YAML with one flag
+               typed builds the same md5 and resumes that checkpoint with
+               nothing left to train. Prints the loader's images/s on the host
+               (4 threads, 12 JPEGs of 512x512) with no augmentation, the
+               default set, both sets, and each transform alone at
+               probability 1.0, and the CLI run's loader wait share, each with
+               the card line.
+16. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -134,11 +149,13 @@ from unittest import mock
 import numpy as np
 import torch
 
+from maskrcnn_tf2_tpu_torch.cli import coco_train as cli_train
 from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
 from maskrcnn_tf2_tpu_torch.cli import evaluate as cli_evaluate
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.data import augment as host_augment
 from maskrcnn_tf2_tpu_torch.data import image_io
-from maskrcnn_tf2_tpu_torch.data.coco import COCO_CLASS_NAMES
+from maskrcnn_tf2_tpu_torch.data.coco import COCO_CLASS_NAMES, CocoDataset
 from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
 from maskrcnn_tf2_tpu_torch.eval.coco_eval import evaluate_dataset
 from maskrcnn_tf2_tpu_torch.export.inference import process_input
@@ -160,6 +177,7 @@ from maskrcnn_tf2_tpu_torch.train.synthetic import (resnet_state_dict, shapes_co
                                                      torchvision_mobilenet_v2_state_dict)
 from maskrcnn_tf2_tpu_torch.train.train_step import _loss, create_train_state, make_train_step
 from maskrcnn_tf2_tpu_torch.utils.summary import count_params
+from maskrcnn_tf2_tpu_torch.utils.tb_writer import make_tb_writer
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
 SEED = 0
@@ -1272,6 +1290,133 @@ def run_zoo(device, card, root, requests):
     return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
 
 
+# ---------------------------------------------------------------------------
+# the training CLI with host augmentation
+# ---------------------------------------------------------------------------
+
+
+def single_transform(fn):
+    """An ``augment_fn`` applying one transform of the weather or extended set."""
+    def augment_fn(image, masks, py_rng, np_rng):
+        image = np.ascontiguousarray(image)
+        if fn in host_augment.GEOMETRIC:
+            return fn(image, masks, py_rng, np_rng)
+        return fn(image, py_rng, np_rng), masks
+    return augment_fn
+
+
+def host_augment_rates(train, cfg, card):
+    """Loader images/s on the host, 4 threads, one pass over ``train``, for
+    each augmentation setting."""
+    off = dict(hflip_prob=0.0, rotate_prob=0.0, blur_prob=0.0, noise_prob=0.0)
+    settings = [("none", None), ("none", None),  # the first pass warms the decoder and the page cache
+                ("default set", host_augment.get_training_augmentation()),
+                ("default + weather + extended", host_augment.get_training_augmentation(extended=True, weather=True))]
+    for name in ("hflip", "vflip", "rotate", "blur", "noise"):
+        settings.append((name, host_augment.get_training_augmentation(**{**off, f"{name}_prob": 1.0})))
+    settings.append(("channel_shuffle", host_augment.get_training_augmentation(
+        extended=True, extended_prob=0.0, channel_shuffle_prob=1.0, **off)))
+    for fn in host_augment.WEATHER + host_augment.EXTENDED:
+        settings.append((fn.__name__.lstrip("_"), single_transform(fn)))
+    rates = {}
+    for name, fn in settings:
+        start = time.perf_counter()
+        n = sum(len(b["images"]) for b in DataLoader(train, cfg, augment_fn=fn, seed=SEED).epoch(num_workers=4))
+        rates[name] = n / (time.perf_counter() - start)
+    log(f"  loader alone on the host, 4 threads, {len(train)} JPEGs of 512x512, images/s by augmentation "
+        f"({card}):\n    " + "\n    ".join(f"{k}: {v:.2f}" for k, v in rates.items()))
+    return rates
+
+
+def run_train_cli(device, card, root):
+    """Phase 15 (see the module's docstring), on phase 10's COCO directory
+    in ``root``. Returns the CLI run's launch counts."""
+    log("== train CLI: cli.coco_train at the flagship's widths (ResNet-50, 512x512, batch 2, 81 classes), host "
+        "augmentation with the weather and extended sets, 6 + 2 images, 2 epochs")
+    start_phase = time.perf_counter()
+    coco, ckpt_dir = os.path.join(root, "coco"), os.path.join(root, "cli_ckpt")
+    probe = make_tb_writer(os.path.join(root, "tb_probe"))
+    if probe is None:
+        log("  tensorboard: absent on this machine; --tensorboard is left out")
+    else:
+        import tensorboard
+        log(f"  tensorboard: {tensorboard.__version__} present; --tensorboard writes the losses")
+    argv = ["-dataset_path", coco, "-backbone", "resnet50", "-img_size", "512", "-batch_size", "2", "-epochs", "2",
+            "--n_train", "6", "--n_val", "2", "--augment_weather", "--augment_extended", "--checkpoints_dir", ckpt_dir,
+            "--device", "cuda"]
+    if probe is not None:
+        argv += ["--tensorboard", os.path.join(root, "tb")]
+    seen = {}
+    real_train_model = cli_train.train_model
+
+    def recording(cfg, train, val, metric_writer=None, **kw):  # the CLI's own call, with a history kept
+        history, losses = [], []
+
+        def write(step, values):
+            losses.append(values)
+            if metric_writer is not None:
+                metric_writer(step, values)
+
+        seen.update(cfg=cfg, train=train, val=val, augment=kw.get("augment_fn"), history=history, losses=losses)
+        return real_train_model(cfg, train, val, metric_writer=write, history=history, **kw)
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    with mock.patch.object(cli_train, "train_model", recording):
+        state = cli_train.main(argv)
+    launches = launch_counts()
+    cfg, history = seen["cfg"], seen["history"]
+    if seen["augment"] is None or len(seen["train"]) != 6 or len(seen["val"]) != 2 or cfg.num_classes != 81:
+        raise AssertionError(f"train CLI: augment {seen['augment']}, {len(seen['train'])} + {len(seen['val'])} "
+                             f"images, {cfg.num_classes} classes")
+    n_steps = sum(h["steps"] for h in history)
+    eval_steps = cfg.epochs * sum(1 for _ in DataLoader(seen["val"], cfg, shuffle=False).epoch())
+    want = (n_steps + eval_steps, 2 * n_steps + 2 * eval_steps, 2 * n_steps)
+    if not n_steps or state.step != n_steps or launches != want:
+        raise AssertionError(f"train CLI: {n_steps} steps (state at {state.step}), {eval_steps} eval steps launched "
+                             f"(NMS, ROIAlign, backward) = {launches}; expected {want}")
+    if not all(np.isfinite(v) for values in seen["losses"] for v in values.values()) or \
+            not all(np.isfinite(v) for h in history for k, v in h.items() if "loss" in k):
+        raise AssertionError(f"train CLI: a loss is not finite: {seen['losses']} {history}")
+    manager = ckpt_lib.make_manager(cfg)
+    kept = manager.all_steps()
+    if not os.path.basename(manager.directory).endswith(cfg.md5()[:8]) or not kept or \
+            not set(kept) <= {0, 1} or cfg.save_best_only is not True:
+        raise AssertionError(f"train CLI: checkpoints {kept} in {manager.directory} for md5 {cfg.md5()}")
+    if probe is not None and not any(f.startswith("events.") for f in os.listdir(os.path.join(root, "tb"))):
+        raise AssertionError("train CLI: --tensorboard wrote no event file")
+    log(f"  {n_steps} steps and {eval_steps} eval steps launched NMS, ROIAlign forward, backward {launches} times, "
+        f"as expected; finite losses (loss_sum by epoch {[round(h['loss_sum'], 4) for h in history]}); best-only "
+        f"checkpoints of epochs {kept} in {os.path.basename(manager.directory)} (md5 {cfg.md5()})")
+
+    # the same run from a YAML with one flag typed: the same md5, its checkpoint resumed
+    path = os.path.join(root, "cli.yaml")
+    cfg.to_yaml(path)
+    again = ["-dataset_path", coco, "--config", path, "-epochs", "2", "--n_train", "6", "--n_val", "2",
+             "--augment_weather", "--augment_extended", "--device", "cuda"]
+    zero_launch_counts()
+    with mock.patch.object(cli_train, "train_model", recording):
+        resumed = cli_train.main(again)
+    if seen["cfg"].md5() != cfg.md5() or resumed.step != state.step or launch_counts() != (0, 0, 0):
+        raise AssertionError(f"train CLI from {path}: md5 {seen['cfg'].md5()} (want {cfg.md5()}), resumed at step "
+                             f"{resumed.step} (want {state.step}), launches {launch_counts()}")
+    log(f"  --config YAML with -epochs typed: md5 {cfg.md5()} again; resumed the checkpoint at step {resumed.step} "
+        f"with nothing left to train")
+    del state, resumed
+
+    step_ips = [h["steps"] * cfg.batch_size / h["train_seconds"] for h in history]
+    wait = [h["loader_wait_s"] / h["train_seconds"] for h in history]
+    log(f"  the CLI's train_model: {step_ips[-1]:.2f} images/s over epoch 2's training steps ({step_ips[0]:.2f} in "
+        f"epoch 1, its first step included) with the host augmentation; loader wait {wait[-1]:.4f} of epoch 2's "
+        f"training time, {wait[0]:.4f} of epoch 1's ({card})")
+    train = CocoDataset()
+    train.load_coco(coco, "train")  # all 12 training images
+    train.prepare()
+    host_augment_rates(train, cfg.replace(sample_cache_dir=None), card)
+    log(f"== train CLI phase done in {time.perf_counter() - start_phase:.1f} s")
+    return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
@@ -1357,10 +1502,13 @@ def main() -> None:
         eval_launches, stream_launches, eval_cfg, state_dict = run_evaluate(device, card, root, loop_cfg, val)
         run_detect_cli(device, card, root, eval_cfg, state_dict)
         zoo_launches = run_zoo(device, card, root, requests)
+        torch.cuda.empty_cache()
+        cli_launches = run_train_cli(device, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
-                    "pretrained_launches": pretrained_launches[name], "zoo_launches": zoo_launches[name]}
+                    "pretrained_launches": pretrained_launches[name], "zoo_launches": zoo_launches[name],
+                    "train_cli_launches": cli_launches[name]}
              for i, name in enumerate(("nms", "roi_align", "roi_align_backward"))}
 
     kernels = [
@@ -1391,7 +1539,8 @@ def main() -> None:
         f"stream_launches: evaluate_dataset over 4 images through detect and detect_stream; "
         f"pretrained_launches: 2 fine-tune steps from a pretrained file; zoo_launches: the backbone zoo's "
         f"{2 * len(ZOO_FULL_WIDTH)} requests and {2 * len(ZOO_FULL_WIDTH)} steps at full width, "
-        f"{len(backbone_names())} requests of the sweep and 2 steps from pretrained files")
+        f"{len(backbone_names())} requests of the sweep and 2 steps from pretrained files; train_cli_launches: "
+        f"the training CLI's steps and eval steps with host augmentation")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -139,13 +139,16 @@ def load_image_gt(
     rng: Optional[np.random.RandomState] = None,
 ):
     """One fixed-shape training sample on the host: load -> resize image and
-    masks -> optional ``augment_fn(image, masks)`` -> drop empty masks ->
+    masks -> optional ``augment_fn(image, masks, py_rng, np_rng)`` (the host
+    augmentation of ``data/augment.py``) -> drop empty masks ->
     subsample to ``max_gt_instances`` -> boxes from masks -> mini masks ->
     meta. GT boxes come back normalized.
 
     ``rng`` draws the subsample (``rng.choice``, which draws what the JAX
     package's global ``np.random.choice`` draws after ``np.random.seed`` of
-    the same seed) and, in ``crop`` mode, seeds the crop's generator.
+    the same seed) and seeds, in ``crop`` mode, the crop's generator and then,
+    with ``augment_fn``, the augmentation's ``random.Random`` and
+    ``RandomState``; without ``augment_fn`` it draws nothing for them.
 
     Returns a dict with ``image`` uint8 ``[H, W, 3]``, ``image_meta [M]``,
     ``gt_class_ids [G]``, ``gt_boxes [G, 4]``, ``gt_masks [G, mh, mw]`` uint8,
@@ -166,8 +169,10 @@ def load_image_gt(
         rng=crop_rng,
     )
     masks = transforms.resize_mask(masks, scale, padding, crop)
-    if augment_fn is not None:
-        image, masks = augment_fn(image, masks)
+    if augment_fn is not None:  # its two generators drawn from rng, as the crop's is
+        py_rng = random.Random(int(rng.randint(2**31 - 1)))
+        np_rng = np.random.RandomState(int(rng.randint(2**31 - 1)))
+        image, masks = augment_fn(image, masks, py_rng, np_rng)
 
     keep = np.where(masks.any(axis=(0, 1)))[0]  # instances that cropping or augmenting emptied
     masks = masks[:, :, keep]

@@ -12,9 +12,10 @@ Randomness: the shuffle draws from ``RandomState(seed)``, one shuffle per
 epoch, as the JAX package's loader does, so both visit the images in the same
 order; ``skip_epochs`` replays the shuffles of epochs a resumed run has
 already trained. Each sample's own draws (the ``max_gt_instances``
-subsample, the ``crop`` window) and each batch's ``random_rois`` come from
-generators seeded by (seed, epoch, position), so they do not depend on the
-order in which the worker threads finish.
+subsample, the ``crop`` window, the host augmentation's generators) and each
+batch's ``random_rois`` come from generators seeded by (seed, epoch,
+position), so they do not depend on the order in which the worker threads
+finish.
 """
 
 from __future__ import annotations
