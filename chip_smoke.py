@@ -127,7 +127,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                default set, both sets, and each transform alone at
                probability 1.0, and the CLI run's loader wait share, each with
                the card line.
-16. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+16. data parallel -- on phase 10's COCO directory, through
+               ``parallel/multihost_dryrun.launch`` (every wait bounded; a
+               failed rank fails the script): (a) two gloo ranks sharing the
+               card, the flagship at one image a rank, 3 data-parallel steps
+               with per-rank BN and with sync-BN: launches (1, 2, 2) a step on
+               each rank, one fused all-reduce a step, the ranks bit-identical
+               after every step, the first update against its
+               single-process emulation (each half through ``_loss``,
+               averaged, then the optimizer: the reduced gradients, read from
+               the first adamax moment, within the whole-step test's rule,
+               the parameters within 1e-3 lr where |grad| >= 1e-4), each
+               kernel held against its plain version on the inputs rank 0's
+               first step gave its wrapper (one image a rank) and timed beside
+               its bound, the sync BatchNorm at C2 against one BatchNorm over
+               the concatenated batch; (c) ``train_model`` with sync-BN under
+               the two ranks, 2 epochs of 3 steps with validation (launches
+               exact, rank 0 alone writes), the preemption drill (rank 1
+               signalled after rank 0's second step: both stop after the same
+               step, one preemption checkpoint) and the resume; (b) one NCCL
+               rank through ``parallel.distributed.initialize()`` as
+               ``torchrun --standalone --nproc_per_node 1`` sets it up: 2
+               steps bit-equal to ``make_train_step``; (d) ``torchrun
+               --standalone --nproc_per_node 1 -m
+               maskrcnn_tf2_tpu_torch.cli.coco_train --sync_bn``: 1 epoch of
+               2 steps, a finite loss. Prints the fused buffer's size, the
+               all-reduce's ms under gloo and NCCL, the sync-BN all-reduces a
+               step (counted through a patched ``torch.distributed.
+               all_reduce``), and train_model's images/s under the two ranks
+               beside the single-process rate, marked as two ranks sharing
+               one card.
+17. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -165,17 +195,22 @@ from maskrcnn_tf2_tpu_torch.kernels import roi_align as roi_kernel
 from maskrcnn_tf2_tpu_torch.models.backbones.factory import backbone_names, get_backbone
 from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_backbone
 from maskrcnn_tf2_tpu_torch.models.backbones.resnet import ResNet
+from maskrcnn_tf2_tpu_torch.models import layers
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
+from maskrcnn_tf2_tpu_torch.parallel import distributed, multihost_dryrun
+from maskrcnn_tf2_tpu_torch.parallel.mesh import check_replicated, shard_batch
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
-from maskrcnn_tf2_tpu_torch.train.loop import train_model
+from maskrcnn_tf2_tpu_torch.train.loop import step_generator, train_model
+from maskrcnn_tf2_tpu_torch.train.optimizer import build_optimizer
 from maskrcnn_tf2_tpu_torch.train.synthetic import (resnet_state_dict, shapes_coco_datasets, smooth_image,
                                                      synthetic_batch, timm_efficientnet_state_dict,
                                                      torchvision_mobilenet_v2_state_dict)
-from maskrcnn_tf2_tpu_torch.train.train_step import _loss, create_train_state, make_train_step
+from maskrcnn_tf2_tpu_torch.train.train_step import (_bn_stats, _draws, _loss, create_train_state,
+                                                     fused_all_reduce_mean, make_train_step)
 from maskrcnn_tf2_tpu_torch.utils.summary import count_params
 from maskrcnn_tf2_tpu_torch.utils.tb_writer import make_tb_writer
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
@@ -512,6 +547,31 @@ def flagship_train_config() -> MaskRCNNConfig:
                           compute_dtype="bfloat16", batch_size=2)
 
 
+@contextlib.contextmanager
+def recorded_wrappers(calls):
+    """The training path's kernel wrappers, each appending ``(args, kwargs)``
+    to ``calls[key]`` before it launches its kernel as usual."""
+
+    def recorder(fn, key):
+        def wrapped(*args, **kwargs):
+            calls[key].append((args, kwargs))
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    with mock.patch.object(nms_op, "greedy_nms", recorder(nms_kernel.greedy_nms, "nms")), \
+            mock.patch.object(roi_op, "roi_align", recorder(roi_kernel.roi_align, "roi_align")), \
+            mock.patch.object(roi_op, "roi_align_backward",
+                              recorder(roi_kernel.roi_align_backward, "roi_align_backward")):
+        yield
+
+
+def check_step_calls(calls):
+    counts = {k: len(v) for k, v in calls.items()}
+    if counts != {"nms": 1, "roi_align": 2, "roi_align_backward": 2}:
+        raise RuntimeError(f"a training step called the wrappers {counts} times; expected 1, 2, 2")
+
+
 def capture_train(device, steps_before=0):
     """The flagship's training state from the seed, after ``steps_before``
     training steps, and one more step through the real path, recording the
@@ -526,31 +586,17 @@ def capture_train(device, steps_before=0):
         state, _ = step(state, batch, rng=gen)
     calls = {"nms": [], "roi_align": [], "roi_align_backward": []}
     cotangents = []
-
-    def recorder(fn, key):
-        def wrapped(*args, **kwargs):
-            calls[key].append((args, kwargs))
-            return fn(*args, **kwargs)
-
-        return wrapped
-
     autograd_backward = roi_op.PyramidRoIAlign.backward
 
     def backward(ctx, dout):
         cotangents.append(f"{tuple(dout.shape)} strides {dout.stride()} contiguous {dout.is_contiguous()}")
         return autograd_backward(ctx, dout)
 
-    with mock.patch.object(nms_op, "greedy_nms", recorder(nms_kernel.greedy_nms, "nms")), \
-            mock.patch.object(roi_op, "roi_align", recorder(roi_kernel.roi_align, "roi_align")), \
-            mock.patch.object(roi_op, "roi_align_backward",
-                              recorder(roi_kernel.roi_align_backward, "roi_align_backward")), \
-            mock.patch.object(roi_op.PyramidRoIAlign, "backward", staticmethod(backward)):
+    with recorded_wrappers(calls), mock.patch.object(roi_op.PyramidRoIAlign, "backward", staticmethod(backward)):
         state, _ = step(state, batch, rng=gen)
     torch.cuda.synchronize()
     log("  cotangents as autograd hands them to PyramidRoIAlign.backward: " + "; ".join(cotangents))
-    counts = {k: len(v) for k, v in calls.items()}
-    if counts != {"nms": 1, "roi_align": 2, "roi_align_backward": 2}:
-        raise RuntimeError(f"a training step called the wrappers {counts} times; expected 1, 2, 2")
+    check_step_calls(calls)
     return state, step, batch, gen, calls
 
 
@@ -637,7 +683,10 @@ def backward_shape_cases(device):
     return cases
 
 
-def hold_roi_backward(calls, flush):
+def hold_roi_backward(calls, flush, shape_cases=True):
+    """The backward kernel against plain on each call (timed, with its
+    bound), and with ``shape_cases`` on boxes aimed at its tiles and on a
+    pyramid past the TPU's VMEM limit; the error and summed times."""
     log("== holds: pyramid ROIAlign backward kernel (csrc/roi_align.cu) vs roi_align_backward_plain")
     err, timings = 0.0, []
     for args, _ in calls:
@@ -660,7 +709,10 @@ def hold_roi_backward(calls, flush):
         log(f"  {p}x{p}: dout {tuple(dout.shape)} {dout.dtype} maps {list(level_hw)}: max err bf16 {e16:.3g} "
             f"(max|grad| {scale:.3g}), f32 {e32:.3g}; kernel {k:.4f} ms, plain {pl:.3f} ms, "
             f"bound {max(bt, ot) * 1e3:.3f} us")
-        log(f"  {p}x{p}: {backward_work(boxes, level_hw, p, image_shape)}")
+        if shape_cases:
+            log(f"  {p}x{p}: {backward_work(boxes, level_hw, p, image_shape)}")
+    if not shape_cases:
+        return summarize(err, timings)
     level_hw = [(512 // s, 512 // s) for s in (4, 8, 16, 32)]
     for name, dout, boxes in backward_shape_cases(dout.device):
         e, scale = hold_backward_case(name, dout, boxes, level_hw, (512, 512))
@@ -919,7 +971,7 @@ def run_train_model(device, card, root):
         f"{history[0]['images_per_s']:.2f} images/s; {wall:.1f} s for the run ({card})")
     log(f"  loader wait: {wait[-1]:.4f} of epoch 2's training time, {wait[0]:.4f} of epoch 1's ({card})")
     log(f"  peak memory {peak:.0f} MiB in train_model ({card})")
-    return dict(zip(("nms", "roi_align", "roi_align_backward"), launches)), cfg, val
+    return dict(zip(("nms", "roi_align", "roi_align_backward"), launches)), cfg, val, step_ips[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -1416,6 +1468,407 @@ def run_train_cli(device, card, root):
     log(f"== train CLI phase done in {time.perf_counter() - start_phase:.1f} s")
     return dict(zip(("nms", "roi_align", "roi_align_backward"), launches))
 
+# ---------------------------------------------------------------------------
+# data parallel
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+
+
+def all_reduce_ms(tensors, group, reps=3):
+    """Median ms of ``fused_all_reduce_mean`` of ``tensors`` on the host clock,
+    after one warm-up (the card synchronized around each)."""
+    fused_all_reduce_mean(tensors, group)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fused_all_reduce_mean(tensors, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times))
+
+
+def emulate_first_step(cfg, device, dp_params, dp_stats, dp_mu):
+    """Rank 0's first data-parallel step emulated in one process: each half
+    of the batch through ``_loss`` with that rank's draws from the seeded
+    start, the gradients and running statistics averaged, then the optimizer.
+    The step's reduced gradients, read from its first adamax moment (``mu =
+    0.1 * clip(g)`` from zero), are held leaf by leaf within 1e-4 * (max
+    |emulated leaf| + the step's largest |emulated mu|), the whole-step
+    test's rule; the parameters within 1e-3 * lr where |g| >= 1e-4 (adamax's
+    first update is about lr * sign(g), so only the moment binds the
+    gradients' size); the running statistics within 1e-5 of max(1, |stat|).
+    Returns the errors and the counts of bit-equal moments and parameters."""
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+    model, lr = state.model, cfg.learning_rate
+    params, stats = list(model.parameters()), _bn_stats(model)
+    start_stats = [t.clone() for t in stats]
+    full = synthetic_batch(cfg, DP_RANKS, SEED + 16, device)
+    grads, new_stats = None, None
+    for r in range(DP_RANKS):
+        with torch.no_grad():
+            for t, s0 in zip(stats, start_stats):
+                t.copy_(s0)
+        half = shard_batch(full, r, DP_RANKS)
+        total, _ = _loss(model, half, _draws(cfg, half, step_generator(SEED, 0, r), None), cfg, augment=True)
+        g = torch.autograd.grad(total, params, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x for p, x in zip(params, g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        new_stats = [t.clone() for t in stats] if new_stats is None else [a + b for a, b in zip(new_stats, stats)]
+    grads = [g / DP_RANKS for g in grads]
+    updates, new_opt = build_optimizer(cfg).update(grads, state.opt_state, params)
+    mu = new_opt.slots["mu"]
+    mu_max = max(float(m.abs().max()) for m in mu)
+    mu_err, mu_equal = 0.0, 0
+    for m, q in zip(mu, dp_mu):
+        d = float((m - q).abs().max())
+        if not d <= 1e-4 * (float(m.abs().max()) + mu_max):
+            raise AssertionError(f"data parallel vs its emulation: a reduced gradient's moment off by {d} "
+                                 f"(leaf max {float(m.abs().max())}, step max {mu_max})")
+        mu_err = max(mu_err, d)
+        mu_equal += int(bool(torch.equal(m, q)))
+    err, err_big, equal = 0.0, 0.0, 0
+    for p, u, g, q in zip(params, updates, grads, dp_params):
+        d = ((p.detach() + u) - q).abs()
+        err = max(err, float(d.max()))
+        big = g.abs() >= 1e-4
+        if bool(big.any()):
+            err_big = max(err_big, float(d[big].max()))
+        equal += int(bool(torch.equal(p.detach() + u, q)))
+    stat_err = max(float((s / DP_RANKS - q).abs().max()) for s, q in zip(new_stats, dp_stats))
+    if err_big > 1e-3 * lr or stat_err > 1e-5 * max(1.0, max(float(q.abs().max()) for q in dp_stats)):
+        raise AssertionError(f"data parallel vs its emulation: params {err} (where |g| >= 1e-4: {err_big}), "
+                             f"statistics {stat_err}; lr {lr}")
+    return dict(mu_err=mu_err, mu_max=mu_max, mu_equal=mu_equal, err=err, err_big=err_big, stat_err=stat_err,
+                equal=equal, n=len(params))
+
+
+def dp_steps(rank, cfg, device, group, batch, out, calls=None):
+    """Phase 16(a) on one rank: 3 data-parallel steps of the flagship at one
+    image a rank; the ranks bit-identical after each; launches, step times,
+    the all-reduces of each step (counted through ``torch.distributed.
+    all_reduce``: the fused one is the buffer of the gradients, the total,
+    the losses and, without sync-BN, the running statistics; every other is
+    a sync-BN's). With ``calls`` the first step records the kernel wrappers'
+    inputs there. Returns the first step's parameters, running statistics
+    and first adamax moments."""
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device, group=group)
+    step = make_train_step(cfg, group)
+    params = list(state.model.parameters())
+    numels = []
+    all_reduce = torch.distributed.all_reduce
+
+    def counted_all_reduce(tensor, *args, **kwargs):
+        numels.append(tensor.numel())
+        return all_reduce(tensor, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    times, first, per_step = [], None, []
+    for i in range(3):
+        start = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(torch.distributed, "all_reduce", counted_all_reduce))
+            if calls is not None and i == 0:
+                stack.enter_context(recorded_wrappers(calls))
+            state, losses = step(state, batch, rng=step_generator(SEED, i, rank))
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        per_step.append(len(numels))
+        values = {k: float(v) for k, v in losses.items()}
+        if not all(np.isfinite(v) for v in values.values()) or values["grad_finite"] != 1.0:
+            raise AssertionError(f"rank {rank} data-parallel step {i} (sync_bn={cfg.sync_bn}): {values}")
+        if i == 0:
+            launches = launch_counts()
+            first = ([p.detach().clone() for p in params], [t.clone() for t in _bn_stats(state.model)],
+                     [m.clone() for m in state.opt_state.slots["mu"]])
+        check_replicated(state.model, group, f"the state after step {i} (sync_bn={cfg.sync_bn})")
+    if launches != (1, 2, 2) or launch_counts() != (3, 6, 6):
+        raise AssertionError(f"rank {rank}: launches {launches} in step 1, {launch_counts()} in 3 steps")
+    stats_numel = 0 if cfg.sync_bn else sum(t.numel() for t in _bn_stats(state.model))
+    numel = sum(p.numel() for p in params) + len(values) + stats_numel  # + the total - grad_finite
+    fused = [n for n in numels if n == numel]
+    bn = [n for n in numels if n != numel]
+    if len(fused) != 3 or per_step != [len(numels) // 3 * k for k in (1, 2, 3)] or bool(bn) != cfg.sync_bn:
+        raise AssertionError(f"rank {rank}: {len(fused)} all-reduces of {numel} elements in 3 steps, "
+                             f"{per_step} all-reduces in all after each step (sync_bn={cfg.sync_bn})")
+    key = "sync" if cfg.sync_bn else "per_rank"
+    out[key] = dict(times=times, loss=values["loss_sum"], fused=len(fused), numel=numel,
+                    bn_per_step=len(bn) // 3)
+    if not cfg.sync_bn:
+        out["gloo_ms"] = all_reduce_ms([p.detach() for p in params], group)
+    if calls is not None:
+        check_step_calls(calls)
+    return first
+
+
+def hold_dp_calls(calls, device):
+    """Each kernel of the data-parallel step against its plain version on the
+    inputs its wrapper got in rank 0's first step (one image a rank), timed
+    beside its bound; the matmul and cuDNN TF32 flags, which the ROIAlign
+    hold clears, restored after."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=device)
+    try:
+        log(f"== holds, data-parallel inputs (rank 0 of {DP_RANKS}, one image a rank): greedy NMS and pyramid "
+            f"ROIAlign forward kernels vs their plain versions")
+        return dict(nms=hold_nms(calls["nms"], flush), roi_align=hold_roi_align(calls["roi_align"], flush),
+                    roi_align_backward=hold_roi_backward(calls["roi_align_backward"], flush, shape_cases=False))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def dp_sync_bn_c2(rank, device, group):
+    """The sync BatchNorm at the flagship's C2 (``[1, 256, 128, 128]`` bf16
+    a rank) against one BatchNorm over the concatenated batch: outputs within
+    2**-7 of max |y|, running statistics within 1e-5 of max(1, |stat|)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    scale = torch.rand(256, generator=gen, device=device) * 1.5 + 0.5
+    shift = torch.randn(256, generator=gen, device=device)
+    x = (torch.randn(DP_RANKS, 256, 128, 128, generator=gen, device=device) * scale[:, None, None]
+         + shift[:, None, None]).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    sync = layers.sync_batch_norms_(layers.BatchNorm(256).to(device), group).train()
+    plain = layers.BatchNorm(256).to(device).train()
+    with torch.no_grad():
+        y = sync(x[rank:rank + 1]).float()
+        want = plain(x)[rank:rank + 1].float()
+    err = float((y - want).abs().max())
+    stat = max(float((a - b).abs().max()) for a, b in ((sync.running_mean, plain.running_mean),
+                                                         (sync.running_var, plain.running_var)))
+    ymax = float(want.abs().max())
+    smax = max(1.0, float(plain.running_var.abs().max()), float(plain.running_mean.abs().max()))
+    if err > 2 ** -7 * ymax or stat > 1e-5 * smax:
+        raise AssertionError(f"rank {rank}: sync BatchNorm at C2 off by {err} (max |y| {ymax}), statistics {stat}")
+    return err, ymax, stat
+
+
+def dp_train_model(rank, device, group, root):
+    """Phase 16(c) on one rank: train_model under the group with sync-BN on
+    phase 10's COCO directory, 2 epochs of 3 steps with validation; then the
+    preemption drill (rank 1 signals itself after rank 0's second step) and
+    the resume."""
+    train, val = CocoDataset(), CocoDataset()
+    train.load_coco(os.path.join(root, "coco"), "train")
+    val.load_coco(os.path.join(root, "coco"), "val")
+    train.prepare()
+    val.prepare()
+    cfg = flagship_train_config().replace(num_classes=train.num_classes, epochs=2, log_per_steps=1, sync_bn=True,
+                                          sample_cache_dir=os.path.join(root, "dp_cache"),
+                                          checkpoints_dir=os.path.join(root, "dp_ckpt"))
+    writes = []
+    save = ckpt_lib.CheckpointManager.save
+
+    def counted_save(self, step, *args):
+        writes.append(os.path.basename(self.directory) + f"/{step}")
+        return save(self, step, *args)
+
+    history, losses = [], []
+    with mock.patch.object(ckpt_lib.CheckpointManager, "save", counted_save):
+        zero_launch_counts()
+        state = train_model(cfg, train, val, steps_per_epoch=3, rng_seed=SEED, device=device, group=group,
+                            history=history, checkpoint_base=os.path.join(root, "dp_main"),
+                            metric_writer=lambda step, values: losses.append(values))
+        launches = launch_counts()
+        check_replicated(state.model, group, "train_model's final state")
+        main_step = state.step
+        del state
+        trigger = os.path.join(root, "dp_sigterm_rank1")
+        marks = []
+
+        def mark(step, values):
+            marks.append(step)
+            if len(marks) == 2:
+                open(trigger, "w").close()
+
+        if rank == 1:
+            multihost_dryrun.signal_self_on(trigger)
+        drill = os.path.join(root, "dp_drill")
+        state = train_model(cfg, train, val, steps_per_epoch=3, rng_seed=SEED, device=device, group=group,
+                            checkpoint_base=drill, metric_writer=mark)
+        stopped = state.step
+        del state
+        pre = sorted(f for f in os.listdir(ckpt_lib.make_preempt_manager(cfg, drill).directory) if f.endswith(".pt"))
+        state = train_model(cfg, train, val, steps_per_epoch=3, rng_seed=SEED, device=device, group=group,
+                            checkpoint_base=drill)
+        check_replicated(state.model, group, "the resumed state")
+        resumed = state.step
+    eval_steps = cfg.epochs * (len(val) // cfg.batch_size)
+    n_steps = sum(h["steps"] for h in history)
+    want = (n_steps + eval_steps, 2 * n_steps + 2 * eval_steps, 2 * n_steps)
+    if n_steps != 6 or main_step != 6 or launches != want:
+        raise AssertionError(f"rank {rank}: train_model {n_steps} steps, launches {launches}; expected {want}")
+    if not all(np.isfinite(v) for h in history for k, v in h.items() if "loss" in k) or \
+            not all(np.isfinite(v) for values in losses for v in values.values()):
+        raise AssertionError(f"rank {rank}: a loss is not finite: {history}")
+    if pre != ["ckpt_0.pt"] or not 2 <= stopped <= 3 or resumed != stopped + 3:
+        raise AssertionError(f"rank {rank}: drill stopped at {stopped}, preemption files {pre}, resumed {resumed}")
+    want_writes = ["maskrcnn_resnet50_" + cfg.md5()[:8] + "/0", "maskrcnn_resnet50_" + cfg.md5()[:8] + "/1",
+                   "preempt/0", "maskrcnn_resnet50_" + cfg.md5()[:8] + "/1"]
+    if writes != (want_writes if rank == 0 else []) or (rank == 0 and len(losses) != 6) or (rank and losses):
+        raise AssertionError(f"rank {rank}: checkpoint writes {writes}, metric writes {len(losses)}")
+    ips = [h["steps"] * cfg.batch_size / h["train_seconds"] for h in history]
+    return dict(launches=launches, stopped=stopped, resumed=resumed, ips=ips, writes=len(writes),
+                val_loss=[h["val_loss_sum"] for h in history])
+
+
+def dp_rank(rank, size, init_method, root):
+    """Phase 16(a) and (c) on one of two gloo ranks that share the card."""
+    device = torch.device("cuda:0")
+    torch.cuda.set_device(device)
+    group = distributed.initialize("gloo", rank, size, init_method, timeout_s=300, device=device)
+    start = time.perf_counter()
+    out = {"rank": rank}
+    cfg = flagship_train_config()  # batch 2: one image a rank
+    batch = shard_batch(synthetic_batch(cfg, size, SEED + 16, device), rank, size)
+    calls = {"nms": [], "roi_align": [], "roi_align_backward": []} if rank == 0 else None
+    first = dp_steps(rank, cfg, device, group, batch, out, calls)
+    if rank == 0:
+        out["emulation"] = emulate_first_step(cfg, device, *first)
+        out["holds"] = hold_dp_calls(calls, device)
+    del first, calls
+    dp_steps(rank, cfg.replace(sync_bn=True), device, group, batch, out)
+    out["c2"] = dp_sync_bn_c2(rank, device, group)
+    torch.cuda.empty_cache()
+    out["seconds_a"] = time.perf_counter() - start
+    out["train_model"] = dp_train_model(rank, device, group, root)
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+def dp_nccl_one_rank(device, card):
+    """Phase 16(b): one NCCL rank set up as ``torchrun --standalone
+    --nproc_per_node 1`` sets it up; 2 data-parallel steps against
+    ``make_train_step`` from the same seed, bit for bit (cuDNN and PyTorch
+    held to deterministic algorithms for both)."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(multihost_dryrun.free_port()))
+    with mock.patch.dict(os.environ, env):
+        group = distributed.initialize()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        backend = torch.distributed.get_backend(group)
+        if backend != "nccl":
+            raise AssertionError(f"initialize() chose {backend} for the card")
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        cfg = flagship_train_config()
+        batch = synthetic_batch(cfg, 2, SEED + 16, device)
+        ends = {}
+        for name, g in (("plain", None), ("dp", group)):
+            state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+            step = make_train_step(cfg, g)
+            for i in range(2):
+                state, losses = step(state, batch, rng=step_generator(SEED, i))
+            ends[name] = ([t.clone() for t in state.model.state_dict().values()],
+                          {k: v.clone() for k, v in losses.items()}, state.opt_state.slots)
+            if name == "dp":
+                nccl_ms = all_reduce_ms([p.detach() for p in state.model.parameters()], group)
+            del state
+        (sd, lo, slots), (sd_dp, lo_dp, slots_dp) = ends["plain"], ends["dp"]
+        differ = [i for i, (a, b) in enumerate(zip(sd, sd_dp)) if not torch.equal(a, b)]
+        differ += [k for k in lo if not torch.equal(lo[k], lo_dp[k])]
+        differ += [f"{k}{i}" for k in slots for i, (a, b) in enumerate(zip(slots[k], slots_dp[k]))
+                   if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"one NCCL rank: 2 data-parallel steps differ from make_train_step in {differ[:8]}")
+        log(f"  (b) one NCCL rank through parallel.distributed.initialize() (torchrun's variables): 2 data-parallel "
+            f"steps bit-equal to make_train_step ({len(sd)} state tensors, the losses, the optimizer slots); "
+            f"the fused all-reduce {nccl_ms:.3f} ms under NCCL at one rank ({card})")
+        return nccl_ms
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        torch.use_deterministic_algorithms(False)
+        distributed.destroy()
+
+
+def dp_cli_torchrun(root, card):
+    """Phase 16(d): ``cli.coco_train --sync_bn`` under ``torchrun --standalone
+    --nproc_per_node 1``: 1 epoch of 2 steps, a finite loss, the checkpoint."""
+    argv = ["-dataset_path", os.path.join(root, "coco"), "-backbone", "resnet50", "-img_size", "512",
+            "-batch_size", "2", "-epochs", "1", "--n_train", "4", "--n_val", "2", "--no_augment", "--sync_bn",
+            "--checkpoints_dir", os.path.join(root, "dp_cli_ckpt")]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "maskrcnn_tf2_tpu_torch.cli.coco_train"] + argv
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.abspath(__file__)),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    start = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - start
+    lines = [ln for ln in text.splitlines() if ln.startswith("epoch 1/1 loss=")]
+    loss = float(lines[0].split("loss=")[1].split()[0]) if lines else float("nan")
+    cfg = cli_train.build_config(cli_train.build_argparser().parse_args(argv), argv)
+    kept = ckpt_lib.make_manager(cfg).all_steps()
+    if proc.returncode != 0 or not np.isfinite(loss) or kept != [0] or not cfg.sync_bn:
+        raise AssertionError(f"torchrun cli.coco_train --sync_bn: exit {proc.returncode}, loss {loss}, "
+                             f"checkpoints {kept}:\n{text[-4000:]}")
+    log(f"  (d) torchrun --standalone --nproc_per_node 1 -m maskrcnn_tf2_tpu_torch.cli.coco_train --sync_bn: "
+        f"1 epoch of 2 steps, loss_sum {loss:.4f}, checkpoint of epoch 0 under md5 {cfg.md5()[:8]}; "
+        f"{seconds:.1f} s with the process start ({card})")
+
+
+def run_data_parallel(device, card, root, single_ips):
+    """Phase 16 (see the module's docstring). Returns rank 0's launch counts
+    in train_model under two ranks."""
+    log("== data parallel: two gloo ranks sharing the card (flagship, 1 image a rank), one NCCL rank, the CLI "
+        "under torchrun")
+    start = time.perf_counter()
+    out = multihost_dryrun.launch(dp_rank, DP_RANKS, (root,), timeout_s=600, num_threads=4)
+    r0 = out[0]
+    for key, what in (("per_rank", "per-rank BN"), ("sync", "sync-BN")):
+        a = [o[key] for o in out]
+        if any(x["fused"] != 3 for x in a) or a[0]["loss"] != a[1]["loss"]:
+            raise AssertionError(f"{what}: fused all-reduces {[x['fused'] for x in a]}, losses "
+                                 f"{[x['loss'] for x in a]}")
+        log(f"  (a) {what}: 3 steps on each rank, launches (1, 2, 2) a step on each, the ranks bit-identical "
+            f"after every step (state checksums all-reduced), 1 fused all-reduce a step of "
+            f"{a[0]['numel']} float32 elements ({a[0]['numel'] * 4 / 1e9:.4f} GB), {a[0]['bn_per_step']} sync-BN "
+            f"all-reduces a step; step ms rank 0 {[round(t, 1) for t in a[0]['times']]}, rank 1 "
+            f"{[round(t, 1) for t in a[1]['times']]} ({card})")
+    e = r0["emulation"]
+    log(f"  (a) the 2-rank update against its single-process emulation (each half through _loss with its rank's "
+        f"draws, averaged, then adamax): the reduced gradients' first moments within {e['mu_err']:.3g} (held "
+        f"per leaf <= 1e-4 (leaf max + step max {e['mu_max']:.3g})), {e['mu_equal']} of {e['n']} bit-equal; "
+        f"max |param diff| {e['err']:.3g}, {e['err_big']:.3g} where |grad| >= 1e-4 (held <= 1e-3 lr), "
+        f"{e['equal']} of {e['n']} parameters bit-equal; running statistics {e['stat_err']:.3g} (held <= 1e-5 "
+        f"of max)")
+    c2 = [o["c2"] for o in out]
+    log(f"  (a) the sync BatchNorm at C2 ([1, 256, 128, 128] bf16 a rank) against one BatchNorm over the "
+        f"concatenated batch: outputs within {max(c[0] for c in c2):.3g} (held <= 2**-7 of max |y| "
+        f"{c2[0][1]:.3g}), statistics within {max(c[2] for c in c2):.3g}")
+    log(f"  the fused all-reduce of the {r0['per_rank']['numel']}-element buffer's parameters under gloo, two "
+        f"ranks sharing the card: {r0['gloo_ms']:.1f} ms ({card})")
+    tm = [o["train_model"] for o in out]
+    if tm[0]["launches"] != tm[1]["launches"] or tm[0]["stopped"] != tm[1]["stopped"] or \
+            tm[0]["resumed"] != tm[1]["resumed"]:
+        raise AssertionError(f"train_model under two ranks: {tm}")
+    log(f"  (c) train_model with sync-BN under two gloo ranks on phase 10's COCO directory: 2 epochs of 3 steps, "
+        f"launches {tm[0]['launches']} on each rank (6 steps x (1, 2, 2) + 4 eval steps x (1, 2, 0)); "
+        f"val_loss_sum {[round(v, 4) for v in tm[0]['val_loss']]}; rank 0 alone wrote the {tm[0]['writes']} "
+        f"checkpoints and the metrics; SIGTERM to rank 1 after rank 0's second step: both ranks stopped after "
+        f"step {tm[0]['stopped']}, one preemption checkpoint, the resume ran to step {tm[0]['resumed']}")
+    log(f"  (c) images/s of train_model's steps, two gloo ranks sharing one card (no scaling number: the fused "
+        f"all-reduce goes through host memory): {tm[0]['ips'][-1]:.2f} in epoch 2 ({tm[0]['ips'][0]:.2f} in "
+        f"epoch 1); single-process train_model in this call (phase 10): {single_ips:.2f} ({card})")
+    log(f"  the two ranks' processes took {max(o['seconds'] for o in out):.1f} s ((a) "
+        f"{max(o['seconds_a'] for o in out):.1f} s)")
+    dp_nccl_one_rank(device, card)
+    dp_cli_torchrun(root, card)
+    log(f"== data parallel phase done in {time.perf_counter() - start:.1f} s")
+    names = ("nms", "roi_align", "roi_align_backward")
+    return {name: dict(data_parallel_launches=n, data_parallel_ms=r0["holds"][name]["ms"],
+                       data_parallel_plain_ms=r0["holds"][name]["plain_ms"],
+                       data_parallel_bound_ms=r0["holds"][name]["bound_ms"],
+                       data_parallel_max_abs_err=r0["holds"][name]["max_abs_err"])
+            for name, n in zip(names, tm[0]["launches"])}
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1496,7 +1949,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        loop_launches, loop_cfg, val = run_train_model(device, card, root)
+        loop_launches, loop_cfg, val, loop_ips = run_train_model(device, card, root)
         torch.cuda.empty_cache()
         pretrained_launches = run_pretrained(device, card, root)
         eval_launches, stream_launches, eval_cfg, state_dict = run_evaluate(device, card, root, loop_cfg, val)
@@ -1504,11 +1957,13 @@ def main() -> None:
         zoo_launches = run_zoo(device, card, root, requests)
         torch.cuda.empty_cache()
         cli_launches = run_train_cli(device, card, root)
+        torch.cuda.empty_cache()
+        dp = run_data_parallel(device, card, root, loop_ips)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
                     "pretrained_launches": pretrained_launches[name], "zoo_launches": zoo_launches[name],
-                    "train_cli_launches": cli_launches[name]}
+                    "train_cli_launches": cli_launches[name], **dp[name]}
              for i, name in enumerate(("nms", "roi_align", "roi_align_backward"))}
 
     kernels = [
@@ -1540,7 +1995,9 @@ def main() -> None:
         f"pretrained_launches: 2 fine-tune steps from a pretrained file; zoo_launches: the backbone zoo's "
         f"{2 * len(ZOO_FULL_WIDTH)} requests and {2 * len(ZOO_FULL_WIDTH)} steps at full width, "
         f"{len(backbone_names())} requests of the sweep and 2 steps from pretrained files; train_cli_launches: "
-        f"the training CLI's steps and eval steps with host augmentation")
+        f"the training CLI's steps and eval steps with host augmentation; data_parallel_launches: rank 0's "
+        f"in train_model under two gloo ranks, 6 steps and 4 eval steps; data_parallel_ms and its plain and "
+        f"bound: rank 0's first data-parallel step (one image a rank, both call sites summed)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

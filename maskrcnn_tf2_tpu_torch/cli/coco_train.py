@@ -10,17 +10,29 @@ Usage:
 
 Host augmentation (``data/augment.py``) is on unless ``--no_augment`` or
 ``--device_augment``. ``--device`` defaults to the card and raises without
-one. ``--sync_bn`` is refused: the port has no data-parallel path yet.
+one.
+
+Data-parallel training: under ``torchrun`` (``WORLD_SIZE`` set) the CLI joins
+the process group (``parallel.distributed.initialize``), one rank per card
+(``cuda:{LOCAL_RANK}`` over NCCL), or on the CPU with ``--device cpu`` over
+gloo; ``-batch_size`` is the global batch. ``--sync_bn`` takes the batch
+norms' statistics across the ranks and needs a process group:
+
+  torchrun --nproc_per_node 8 -m maskrcnn_tf2_tpu_torch.cli.coco_train \
+      -dataset_path=/data/coco -batch_size=8 --sync_bn
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig, coco_config
 from maskrcnn_tf2_tpu_torch.data.augment import get_training_augmentation
 from maskrcnn_tf2_tpu_torch.data.coco import CocoDataset
 from maskrcnn_tf2_tpu_torch.device import resolve_device
+from maskrcnn_tf2_tpu_torch.models.mask_rcnn import check_sync_bn
+from maskrcnn_tf2_tpu_torch.parallel import distributed
 from maskrcnn_tf2_tpu_torch.train.loop import train_model
 from maskrcnn_tf2_tpu_torch.utils.tb_writer import make_tb_writer
 
@@ -53,7 +65,8 @@ def build_argparser():
     p.add_argument("--device_augment", action="store_true",
                    help="flip/scale/photometric augmentation on the card instead of the host's")
     p.add_argument("--sample_cache", default=None, help="directory for the decoded-sample cache")
-    p.add_argument("--sync_bn", action="store_true", help="cross-replica BatchNorm (not in the port yet)")
+    p.add_argument("--sync_bn", action="store_true", help="cross-replica BatchNorm statistics over the data-parallel ranks "
+                        "(use when the per-card batch is small, e.g. 1 image a card)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--tensorboard", default=None, metavar="DIR", help="write the training losses to DIR")
     return p
@@ -105,13 +118,20 @@ def build_config(args, argv) -> MaskRCNNConfig:
 def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
-    if args.sync_bn:
-        p.error("--sync_bn needs the data-parallel path, which the port does not have yet (ROADMAP A.6)")
     device = resolve_device(args.device)
-    writer = make_tb_writer(args.tensorboard) if args.tensorboard else None
-    if args.tensorboard and writer is None:
-        p.error("--tensorboard needs the tensorboard package")
+    group = None
+    if os.environ.get("WORLD_SIZE"):  # under torchrun: one rank per card, or gloo ranks on the CPU
+        device = device if device.type == "cpu" else distributed.local_device()
+        group = distributed.initialize(device=device)
     cfg = build_config(args, argv)
+    try:
+        check_sync_bn(cfg, group)
+    except ValueError as e:
+        p.error(str(e))
+    primary = distributed.is_primary(group)
+    writer = make_tb_writer(args.tensorboard) if args.tensorboard and primary else None
+    if args.tensorboard and primary and writer is None:
+        p.error("--tensorboard needs the tensorboard package")
     class_names = MINITRAIN_CLASSES if args.minitrain else None
 
     train_ds = CocoDataset()
@@ -120,15 +140,17 @@ def main(argv=None):
     val_ds = CocoDataset()
     val_ds.load_coco(args.dataset_path, "val", args.year, class_names=class_names, max_images=args.n_val)
     val_ds.prepare()
-    print(f"train: {len(train_ds)} images, val: {len(val_ds)} images, "
-          f"{cfg.num_classes} classes, backbone={cfg.backbone}")
+    if primary:
+        print(f"train: {len(train_ds)} images, val: {len(val_ds)} images, "
+              f"{cfg.num_classes} classes, backbone={cfg.backbone}"
+              + (f", {distributed.world_size(group)} ranks" if group is not None else ""))
 
     augment = (
         None
         if (args.no_augment or args.device_augment)
         else get_training_augmentation(extended=args.augment_extended, weather=args.augment_weather)
     )
-    return train_model(cfg, train_ds, val_ds, augment_fn=augment, metric_writer=writer, device=device)
+    return train_model(cfg, train_ds, val_ds, augment_fn=augment, metric_writer=writer, device=device, group=group)
 
 
 if __name__ == "__main__":

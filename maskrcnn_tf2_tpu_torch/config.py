@@ -160,6 +160,9 @@ class MaskRCNNConfig:
             raise ValueError("one anchor scale per pyramid level")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
+        if self.parallel_mode != "shard_map" or self.tp_shards != 1:
+            raise ValueError("parallel_mode='gspmd' and tp_shards > 1 (tensor parallelism of the classifier FCs) "
+                             "are not in the port yet (ROADMAP A.6b): use parallel_mode='shard_map', tp_shards=1")
 
     # ---- derived quantities ----
     @property

@@ -16,6 +16,16 @@ subsample, the ``crop`` window, the host augmentation's generators) and each
 batch's ``random_rois`` come from generators seeded by (seed, epoch,
 position), so they do not depend on the order in which the worker threads
 finish.
+
+Multi-process input sharding (JAX ``data/loader.py:39-62, 124-165``):
+``config.batch_size`` is the global batch. Every process shuffles the whole
+order with the same seed and takes ``host_shard(order, index, count)``
+(``order[index::count]``), and loads ``batch_size // count`` images a step.
+A sample's position is its position in the whole order, so step for step
+the union of the processes' samples is the single-process batch, bit for
+bit (as long as no image is skipped). ``epoch(fixed_steps=...)`` cycles a
+process's shard to fill a count that every process shares, so that no rank
+waits at a collective that another never reaches.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.data.dataset import SegmentationDataset, load_image_gt
 from maskrcnn_tf2_tpu_torch.data.random_rois import generate_random_rois
 from maskrcnn_tf2_tpu_torch.device import DeviceLike, resolve_device
+from maskrcnn_tf2_tpu_torch.parallel.distributed import host_shard
 
 Batch = Dict[str, np.ndarray]
 
@@ -46,8 +57,9 @@ class DataLoader:
     [B, R, 4]``. Images without instances are skipped and the ragged tail is
     dropped.
 
-    ``process_index``/``process_count`` would give each host its share of a
-    multi-host run; only one process is supported yet.
+    ``process_index``/``process_count`` give each process its shard of a
+    data-parallel run: ``batch_size`` is then this process's share of
+    ``config.batch_size``.
     """
 
     def __init__(
@@ -60,8 +72,10 @@ class DataLoader:
         process_index: int = 0,
         process_count: int = 1,
     ):
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError("multi-process input sharding is not ported yet: one process only")
+        if config.batch_size % process_count:
+            raise ValueError(f"batch_size {config.batch_size} does not split over {process_count} processes")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of {process_count}")
         self.dataset = dataset
         self.config = config
         self.shuffle = shuffle
@@ -69,12 +83,15 @@ class DataLoader:
         self.seed = seed
         self._rng = np.random.RandomState(seed)
         self._epochs = 0  # epochs begun
-        self.batch_size = config.batch_size
+        self.process_index = process_index
+        self.process_count = process_count
+        self.batch_size = config.batch_size // process_count
         self._cache_tag: Optional[str] = None
 
     @property
     def steps_per_epoch(self) -> int:
-        return len(self.dataset) // self.batch_size
+        """Global steps an epoch: the same on every process."""
+        return len(self.dataset) // (self.batch_size * self.process_count)
 
     def skip_epochs(self, n: int) -> None:
         """Advance as ``n`` epochs would: the next ``epoch()`` draws what it
@@ -123,15 +140,18 @@ class DataLoader:
     def epoch(self, num_workers: int = 4, fixed_steps: Optional[int] = None) -> Iterator[Batch]:
         """One epoch of batches, decoded by ``num_workers`` threads.
 
-        ``fixed_steps``: yield exactly that many batches, cycling the images
-        if a pass gives fewer."""
+        ``fixed_steps``: yield exactly that many batches, cycling this
+        process's images if a pass gives fewer."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(order)
         epoch = self._epochs
         self._epochs += 1
+        index, count = self.process_index, self.process_count
+        order = host_shard(order, index, count)
         if fixed_steps and len(order) == 0:
-            raise RuntimeError(f"the dataset is empty but fixed_steps={fixed_steps} batches were requested")
+            raise RuntimeError(f"the shard {index}/{count} of a dataset of {len(self.dataset)} is empty but "
+                               f"fixed_steps={fixed_steps} batches were requested")
 
         def index_stream():
             while True:
@@ -150,8 +170,8 @@ class DataLoader:
                     nxt = next(stream, None)
                     if nxt is None:
                         break
-                    pos, idx = nxt
-                    rng = np.random.RandomState([self.seed, epoch, pos, 0])
+                    pos, idx = nxt  # pos: the position in this shard's stream
+                    rng = np.random.RandomState([self.seed, epoch, index + pos * count, 0])
                     pending.append(pool.submit(self._sample, int(idx), rng))
 
             top_up()
@@ -166,7 +186,9 @@ class DataLoader:
                     continue
                 buf.append(sample)
                 if len(buf) == self.batch_size:
-                    yield self._collate(buf, np.random.RandomState([self.seed, epoch, yielded, 1]))
+                    # random_rois draw per (step, process): not part of the union's equality
+                    rois_seed = [self.seed, epoch, yielded, 1] + ([index] if count > 1 else [])
+                    yield self._collate(buf, np.random.RandomState(rois_seed))
                     buf = []
                     yielded += 1
                     since_yield = 0

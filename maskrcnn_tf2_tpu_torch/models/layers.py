@@ -17,6 +17,16 @@ training mode it normalizes with the biased batch variance and updates
 ``running = 0.9 * running + 0.1 * batch`` with that biased variance (torch's
 own module would use the unbiased one); statistics are float32 over a bf16
 input. ``module.train(mode)`` is the ``train_bn`` switch.
+
+Sync-BN (``config.sync_bn``): a ``BatchNorm`` whose ``group`` is a process
+group computes its batch statistics across the group's ranks as flax's
+``BatchNorm(axis_name=...)`` does: ``mean = pmean(E[x])``, ``mean2 =
+pmean(E[x**2])`` (one all-reduce of both, in float32 over the input),
+``var = max(mean2 - mean**2, 0)``, and the running statistics take that biased
+``var``. The gradient flows through the reduction: the all-reduce's backward
+all-reduces the cotangent (psum's transpose is psum), so each rank's input
+gradient holds every rank's loss. ``sync_batch_norms_`` gives a module's
+batch norms the group.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
@@ -85,12 +96,46 @@ class Linear(nn.Linear):
 FLAX_MOMENTUM = 0.9
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """``psum`` over a process group, differentiable: the backward sums the
+    cotangents of every rank."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        y = x.clone()
+        tdist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.contiguous().clone()
+        tdist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """Flax ``BatchNorm(momentum=0.9, epsilon=eps)`` over the channel axis of
-    ``[N, C]`` or ``[N, C, H, W]``; float32 parameters and statistics."""
+    ``[N, C]`` or ``[N, C, H, W]``; float32 parameters and statistics. With a
+    process group as ``group``, training mode takes cross-replica statistics."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(channels, eps=eps, momentum=1.0 - FLAX_MOMENTUM)
+        self.group = None
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        x32 = x.to(torch.float32)
+        local = torch.stack([x32.mean(dims), (x32 * x32).mean(dims)])
+        mean, mean2 = _AllReduceSum.apply(local, self.group) / tdist.get_world_size(self.group)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(FLAX_MOMENTUM).add_(mean.detach() * self.momentum)
+            self.running_var.mul_(FLAX_MOMENTUM).add_(var.detach() * self.momentum)
+        return y.to(x.dtype)
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() not in (2, 4):
@@ -101,6 +146,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            return self._sync_forward(x)
         # momentum 1 writes the batch's mean and unbiased variance into the
         # scratch statistics; the normalization itself uses the biased one
         mean = torch.zeros_like(self.running_mean)
@@ -111,6 +158,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_mean.mul_(FLAX_MOMENTUM).add_(mean * self.momentum)
             self.running_var.mul_(FLAX_MOMENTUM).add_(var * ((n - 1) / n) * self.momentum)
         return y
+
+
+def sync_batch_norms_(module: nn.Module, group) -> nn.Module:
+    """Give every ``BatchNorm`` under ``module`` the process group ``group``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 def activation(leaky: bool):

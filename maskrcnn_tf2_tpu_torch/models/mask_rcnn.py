@@ -24,6 +24,14 @@ scores, boxes, NMS, targets and losses run in float32 whatever the compute
 dtype. Each forward sets the batch norms' mode: batch statistics in the
 backbone when ``train and train_bn and train_bn_backbone``, in the heads
 when ``train and train_bn``, running averages otherwise.
+
+With ``config.sync_bn`` the model takes a process group (``group``), and
+every batch norm of the backbone and of both heads takes its batch
+statistics across the group's ranks (``layers.BatchNorm``), as the JAX
+package threads ``bn_axis`` into each of them; the FPN and the RPN have none.
+Without a group such a model serves (running averages need no ranks), and a
+forward on batch statistics raises, as the JAX step does outside
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from maskrcnn_tf2_tpu_torch.device import DeviceLike, resolve_device
 from maskrcnn_tf2_tpu_torch.models.backbones.factory import get_backbone
 from maskrcnn_tf2_tpu_torch.models.fpn import FPN
 from maskrcnn_tf2_tpu_torch.models.heads import FPNClassifierHead, FPNMaskHead
+from maskrcnn_tf2_tpu_torch.models.layers import sync_batch_norms_
 from maskrcnn_tf2_tpu_torch.models.rpn import RPNHead
 from maskrcnn_tf2_tpu_torch.ops.anchors import get_anchors
 from maskrcnn_tf2_tpu_torch.ops.detection import refine_detections
@@ -54,6 +63,14 @@ from maskrcnn_tf2_tpu_torch.ops.targets import detection_targets
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def check_sync_bn(config: MaskRCNNConfig, group) -> None:
+    """Training with ``sync_bn`` needs a process group to take the batch
+    statistics over."""
+    if config.sync_bn and group is None:
+        raise ValueError("sync_bn=True needs a process group: initialize parallel.distributed and pass its group "
+                         "(or set sync_bn=False for per-rank batch statistics)")
+
+
 def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()  # a view when x is channels_last
 
@@ -62,13 +79,15 @@ class MaskRCNN(nn.Module):
     """The flagship detector.
 
     ``device=None`` places it on the card and raises if there is none;
-    pass ``device="cpu"`` to run on the CPU.
+    pass ``device="cpu"`` to run on the CPU. ``group`` is the process group
+    of ``config.sync_bn`` (ignored without it).
     """
 
-    def __init__(self, config: MaskRCNNConfig, device: DeviceLike = None):
+    def __init__(self, config: MaskRCNNConfig, device: DeviceLike = None, group=None):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.bn_group = group if cfg.sync_bn else None
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.backbone = get_backbone(cfg.backbone, leaky_relu=cfg.resnet_leaky_relu)
         self.fpn = FPN(self.backbone.endpoint_channels, cfg.top_down_pyramid_size)
@@ -81,6 +100,9 @@ class MaskRCNN(nn.Module):
             cfg.top_down_pyramid_size, cfg.num_classes, cfg.mask_conv_channels,
             leaky_relu=cfg.mask_head_leaky_relu,
         )
+        if cfg.sync_bn:
+            for m in (self.backbone, self.classifier, self.mask_head):
+                sync_batch_norms_(m, group)
         self.register_buffer("anchors", torch.from_numpy(get_anchors(cfg).copy()), persistent=False)
         device = resolve_device(device)
         self.to(device=device, memory_format=torch.channels_last)
@@ -150,6 +172,8 @@ class MaskRCNN(nn.Module):
         if train and not cfg.use_rpn_rois and input_rois is None:
             raise ValueError("use_rpn_rois=False trains the heads on input_rois: pass them")
         train_bn = train and cfg.train_bn
+        if train_bn:
+            check_sync_bn(cfg, self.bn_group)
         self.backbone.train(train_bn and cfg.train_bn_backbone)
         self.classifier.train(train_bn)
         self.mask_head.train(train_bn)

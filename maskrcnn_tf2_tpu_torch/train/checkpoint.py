@@ -12,6 +12,10 @@ batch-norm statistics), the optimizer state, the step and an optional
 ``extra`` dict of floats (the LR plateau's state). The directory is named
 ``maskrcnn_{backbone}_{md5[:8]}`` as the JAX package names it; orbax
 checkpoints are not read.
+
+In a data-parallel run (``group``) the ranks hold the same state: only the
+primary rank writes, the others wait at a barrier until the file is there,
+and every rank restores the same file.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.parallel import distributed
 from maskrcnn_tf2_tpu_torch.train.optimizer import OptState
 from maskrcnn_tf2_tpu_torch.train.train_step import TrainState
 
@@ -114,8 +119,13 @@ def pick_resume_manager(manager: CheckpointManager, preempt_manager: Optional[Ch
     return manager
 
 
-def save(manager: CheckpointManager, state: TrainState, epoch: int, metrics: Dict, extra: Optional[Dict] = None):
-    """Save ``state`` as epoch ``epoch``'s checkpoint, with ``extra`` (floats)."""
+def save(manager: CheckpointManager, state: TrainState, epoch: int, metrics: Dict, extra: Optional[Dict] = None,
+         group=None):
+    """Save ``state`` as epoch ``epoch``'s checkpoint, with ``extra`` (floats).
+    With ``group``, the primary rank writes and every rank returns after it."""
+    if group is not None and not distributed.is_primary(group):
+        distributed.barrier(f"checkpoint {epoch}", group)
+        return
     opt = state.opt_state
     payload = {
         "step": int(state.step),
@@ -125,6 +135,8 @@ def save(manager: CheckpointManager, state: TrainState, epoch: int, metrics: Dic
     if extra:
         payload["extra"] = {k: float(v) for k, v in extra.items()}
     manager.save(epoch, payload, {k: float(v) for k, v in metrics.items()})
+    if group is not None:
+        distributed.barrier(f"checkpoint {epoch}", group)
 
 
 def restore(

@@ -14,14 +14,29 @@ statistics and leaves the parameters and the optimizer state as they were.
 Randomness: a step's uniform draws (``ops.targets.draw_uniforms``) come
 from the ``torch.Generator`` passed as ``rng``; a caller may pass the draws
 themselves as ``draws`` instead, as the parity tests do with JAX's.
+
+Data parallelism (JAX ``train_step.py:150-333``): given a process group, each
+rank runs the step on its own rows with its own draws (the loop seeds a
+generator per rank, where the JAX step folds the axis index into its key),
+then ONE all-reduce (``fused_all_reduce_mean``) averages the gradients, the
+total and the named losses, the per-rank running batch-norm statistics when
+``sync_bn`` is off (with it they are already equal on every rank), and the
+preemption flag of ``batch["preempt"]`` (its mean > 0 when some rank was
+signalled). The update and the optimizer then run on equal values on every
+rank, so the ranks stay replicated. The non-finite guard decides on the
+reduced total, so every rank takes or skips the update together (the JAX
+step tests each shard's local total: a divergence by design). The step uses
+``torch.autograd.grad`` on a parameter list and places the all-reduce by
+hand, as the JAX package does; ``DistributedDataParallel`` is not used.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as tdist
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.device import DeviceLike, resolve_device
@@ -45,14 +60,15 @@ class TrainState:
     opt_state: OptState
 
 
-def create_train_state(config: MaskRCNNConfig, rng: torch.Generator, device: DeviceLike = None) -> TrainState:
+def create_train_state(config: MaskRCNNConfig, rng: torch.Generator, device: DeviceLike = None,
+                       group=None) -> TrainState:
     """A model with seeded random weights (``weights.lecun_init_``, drawn on
     the CPU from ``rng``), its backbone then loaded from
     ``config.backbone_init_weights`` when that names pretrained weights
     (``models/backbones/pretrained.py``), moved to ``device``, and a fresh
-    optimizer state."""
+    optimizer state. ``group`` is the process group of ``config.sync_bn``."""
     device = resolve_device(device)
-    model = lecun_init_(MaskRCNN(config, device="cpu"), rng)
+    model = lecun_init_(MaskRCNN(config, device="cpu", group=group), rng)
     init_backbone_weights(model, config)
     model.to(device)
     return TrainState(0, model, build_optimizer(config).init(list(model.parameters())))
@@ -100,16 +116,40 @@ def _draws(config, batch, rng, draws):
                          num_rois=None if config.use_rpn_rois else rois.shape[1])
 
 
-def make_train_step(config: MaskRCNNConfig):
+def fused_all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """The mean over ``group``'s ranks of every tensor, in ONE all-reduce
+    (JAX ``fused_pmean``): each is flattened into one float32 buffer, the
+    buffer summed across ranks and divided by their number, then split back
+    into the tensors' shapes and dtypes. Bit-equal to a per-tensor mean for
+    float32 tensors."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+    tdist.all_reduce(flat, group=group)
+    flat /= tdist.get_world_size(group)
+    out, off = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[off:off + n].reshape(t.shape).to(t.dtype))
+        off += n
+    return out
+
+
+def make_train_step(config: MaskRCNNConfig, group=None):
     """``train_step(state, batch, rng=None, draws=None) -> (state, losses)``.
 
     ``batch``: ``images [B, H, W, 3]``, ``image_meta [B, M]``,
     ``gt_class_ids [B, G]``, ``gt_boxes [B, G, 4]``, ``gt_masks [B, G, mh,
     mw]`` (images and masks uint8 or float) and, when ``use_rpn_rois=False``,
-    ``input_rois [B, R, 4]``, all on the model's device. With
-    ``augment_on_device`` the step augments the batch (``ops/augment.py``).
-    Frozen modules get zero gradients, so that the optimizer state advances
-    for them as optax's does.
+    ``input_rois [B, R, 4]``, all on the model's device; optionally
+    ``preempt``, a float tensor whose max joins the losses as ``preempt``.
+    With ``augment_on_device`` the step augments the batch
+    (``ops/augment.py``). Frozen modules get zero gradients, so that the
+    optimizer state advances for them as optax's does.
+
+    With ``group`` (a process group) the step is data-parallel: ``batch`` is
+    this rank's rows, ``rng``/``draws`` its own, and the losses returned are
+    the means over the ranks (see the module's docstring).
     """
     if config.quant_mode != "off":
         raise ValueError("quant_mode is inference-only post-training quantization; train with quant_mode='off'")
@@ -123,13 +163,28 @@ def make_train_step(config: MaskRCNNConfig):
         params = list(model.parameters())
         stats = _bn_stats(model)
         saved = [t.clone() for t in stats] if config.nonfinite_guard != "off" else None
+        batch = dict(batch)
+        preempt = batch.pop("preempt", None)
         total, losses = _loss(model, batch, _draws(config, batch, rng, draws), config, augment=True)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        total = total.detach()
+        losses = {k: v.detach() for k, v in losses.items()}
+        if preempt is not None:
+            losses["preempt"] = preempt.detach().to(torch.float32).max()
+        if group is not None:
+            names, n = list(losses), len(grads)
+            reduce_stats = stats if not config.sync_bn else []
+            out = fused_all_reduce_mean(grads + [total] + [losses[k] for k in names] + reduce_stats, group)
+            grads, total = out[:n], out[n]
+            losses = dict(zip(names, out[n + 1:n + 1 + len(names)]))
+            with torch.no_grad():
+                for t, r in zip(reduce_stats, out[n + 1 + len(names):]):
+                    t.copy_(r)
         updates, new_opt_state = opt.update(grads, state.opt_state, params)
         ok = True
         if config.nonfinite_guard != "off":
-            finite = torch.isfinite(total.detach())
+            finite = torch.isfinite(total)
             if config.nonfinite_guard == "full":
                 finite = finite & torch.stack([torch.isfinite(u).all() for u in updates]).all()
             ok = bool(finite)
@@ -142,17 +197,17 @@ def make_train_step(config: MaskRCNNConfig):
                 for t, s in zip(stats, saved):
                     t.copy_(s)
         state.step += 1
-        losses = {k: v.detach() for k, v in losses.items()}
         losses["grad_finite"] = torch.tensor(float(ok), device=total.device)
         return state, losses
 
     return train_step
 
 
-def make_eval_step(config: MaskRCNNConfig):
+def make_eval_step(config: MaskRCNNConfig, group=None):
     """``eval_step(state, batch, rng=None, draws=None) -> losses``: the same
     losses as a training step, without the augmentation, the L2 term, the
-    update, or any change to the batch-norm statistics."""
+    update, or any change to the batch-norm statistics. With ``group`` the
+    losses are the means over the ranks, in one all-reduce."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch, rng: Optional[torch.Generator] = None,
@@ -163,6 +218,10 @@ def make_eval_step(config: MaskRCNNConfig):
         for t, s in zip(stats, saved):
             t.copy_(s)
         del losses["l2_loss"]
+        if group is not None:
+            names = list(losses)
+            losses = dict(zip(names, fused_all_reduce_mean([losses[k] for k in names], group)))
         return losses
 
     return eval_step
+

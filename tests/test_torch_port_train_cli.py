@@ -11,8 +11,9 @@
   ``coco_config``: 1 epoch of 2 steps with host augmentation (both optional
   sets), a best-only checkpoint under the configuration's md5, and the
   losses in TensorBoard.
-* ``--sync_bn`` exits naming ROADMAP A.6; without ``--device`` the CLI asks
-  for the card.
+* ``--sync_bn`` without a process group exits with the model's error (under
+  ``torchrun`` it trains: ``tests/test_torch_port_multihost.py``); without
+  ``--device`` the CLI asks for the card.
 """
 
 import random
@@ -112,10 +113,17 @@ def test_cli_config_file_overridden_only_by_typed_flags(typed, coco_dir, tmp_pat
     assert (pcfg.epochs, pcfg.num_classes) == ((7, 5) if typed else (2, 9))
 
 
-def test_cli_refuses_sync_bn(coco_dir, capsys):
+def test_cli_refuses_sync_bn(coco_dir, capsys, monkeypatch):
+    """Outside ``torchrun`` there is no process group to take the batch
+    statistics over: the CLI exits with the model's own message."""
+    from maskrcnn_tf2_tpu_torch.models.mask_rcnn import check_sync_bn
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError) as model_error:
+        check_sync_bn(coco_config(sync_bn=True), None)
     with pytest.raises(SystemExit):
         port_cli.main(["-dataset_path", coco_dir, "--sync_bn", "--device", "cpu"])
-    assert "A.6" in capsys.readouterr().err
+    assert str(model_error.value) in capsys.readouterr().err
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal on a machine without a card")
