@@ -157,7 +157,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                all_reduce``), and train_model's images/s under the two ranks
                beside the single-process rate, marked as two ranks sharing
                one card.
-17. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+17. int8 serving -- (a) ``quantize_for_inference`` calibrates the flagship
+               (seeded weights) on the card over the 4 requests; (b) one int8
+               request records K7's (``csrc/int8_conv.cu``) inputs: every
+               distinct site shape held bit-equal to ``int8_conv_plain`` in
+               float32 and bf16, launched twice, and timed beside its bound
+               (2 M N K operations at 1,979 int8 TOP/s, or its bytes at 3.35
+               TB/s), the plain version, the bf16 cuDNN convolution of the
+               same shape and, for a 1x1 site, ``torch._int_mm``; the same
+               holds on ResNeXt's 4-channel groups, depthwise sites, I = 3 and
+               36, stride 2 on odd sizes, the classifier FC at K = 12544 and an
+               input whose amax is 0; (c) launch counts set to 0, then 4 int8
+               requests of 2 images: (NMS, ROIAlign, K7) = (2, 2, 65) each; 71
+               K7 a request with ``quant_classifier`` and
+               ``quant_mask_head``; one request each on ResNeXt-50 (65 K7)
+               and MobileNet V2 (46), every site shape of each held and
+               timed as in (b); the share of each image's top-5 bf16
+               detections that int8 matches (same class, IoU >= 0.9), held at
+               ``TOP5_FLOOR``; the int8 and bf16 forwards at batch 2 and 8
+               (CUDA events, median of 10); (d) a small float32 int8 model
+               with one calibration, card (TF32 off) against CPU: every int8
+               site call bit-equal on the CPU's inputs, end to end held at
+               floors that a wiring fault falls below; (e) ``cli.detect
+               --int8`` on 3 JPEGs.
+18. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -178,6 +201,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from maskrcnn_tf2_tpu_torch.cli import coco_train as cli_train
 from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
@@ -189,13 +213,15 @@ from maskrcnn_tf2_tpu_torch.data.coco import COCO_CLASS_NAMES, CocoDataset
 from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
 from maskrcnn_tf2_tpu_torch.eval.coco_eval import evaluate_dataset
 from maskrcnn_tf2_tpu_torch.export.inference import process_input
+from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
 from maskrcnn_tf2_tpu_torch.kernels import _build
+from maskrcnn_tf2_tpu_torch.kernels import int8_conv as int8_kernel
 from maskrcnn_tf2_tpu_torch.kernels import nms as nms_kernel
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as roi_kernel
 from maskrcnn_tf2_tpu_torch.models.backbones.factory import backbone_names, get_backbone
 from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_backbone
 from maskrcnn_tf2_tpu_torch.models.backbones.resnet import ResNet
-from maskrcnn_tf2_tpu_torch.models import layers
+from maskrcnn_tf2_tpu_torch.models import layers, quant
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
@@ -1870,6 +1896,393 @@ def run_data_parallel(device, card, root, single_ips):
             for name, n in zip(names, tm[0]["launches"])}
 
 
+# ---------------------------------------------------------------------------
+# int8 serving
+# ---------------------------------------------------------------------------
+
+INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor-core operations a second
+# Floors a wiring fault (a wrong scale, a site fed the wrong tensor) falls far
+# below and rounding flips do not (readings on an H100: top-5 0.875; the
+# small model card vs CPU 0.0295 relative L2, 0.99 of classes equal)
+TOP5_FLOOR = 0.5
+CROSS_MAX_REL_L2 = 0.1
+CROSS_MIN_CLASSES = 0.9
+
+
+def request_batches(requests, cfg):
+    """Each request as the (images, meta) batch the inference forward takes."""
+    for images in requests:
+        molded, metas = zip(*(process_input(im, cfg, i) for i, im in enumerate(images)))
+        yield torch.from_numpy(np.stack(molded)), torch.from_numpy(np.stack(metas))
+
+
+def int8_predictor(cfg, state_dict, batches, device):
+    qcfg, qstate = quantize_for_inference(cfg, state_dict, batches, device=device)
+    return Predictor(qcfg, qstate, device=device)
+
+
+def capture_int8(predictor, images):
+    """One request through the int8 path, recording K7's wrapper inputs.
+    Returns ``(calls, results, launches)``: launches counted by the wrapper."""
+    calls = []
+
+    def wrapped(*args):
+        calls.append(args)
+        return int8_kernel.int8_conv(*args)
+
+    before = int8_kernel.int8_conv.launches
+    with mock.patch.object(quant, "int8_conv", wrapped):
+        results = predictor.detect(images)
+    torch.cuda.synchronize()
+    return calls, results, int8_kernel.int8_conv.launches - before
+
+
+def int8_cases(device):
+    """K7's edge cases: (name, x, w, sx, sw, bias, stride, groups)."""
+    rs = np.random.RandomState(SEED + 17)
+
+    def case(name, x_shape, w_shape, stride, groups, bias=True, zeros=False):
+        x = np.zeros(x_shape) if zeros else rs.randint(-127, 128, x_shape)
+        amax = 0.0 if zeros else 3.0
+        t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)
+        o = w_shape[0]
+        return (name, t(x, torch.int8), t(rs.randint(-127, 128, w_shape), torch.int8),
+                t(max(amax, 1e-6) / 127.0, torch.float32), t(rs.uniform(1e-4, 1e-2, o), torch.float32),
+                t(rs.normal(size=o), torch.float32) if bias else None, stride, groups)
+
+    return [
+        case("ResNeXt-50 C2 grouped 3x3, 32 groups of 4", (2, 128, 128, 128), (128, 3, 3, 4), 1, 32, bias=False),
+        case("ResNeXt-50 C3 grouped 3x3/2, 32 groups of 8", (2, 128, 128, 256), (256, 3, 3, 8), 2, 32, bias=False),
+        case("depthwise 3x3 (MASKRCNN_TPU_INT8_DW=1), C 144", (2, 128, 128, 144), (144, 3, 3, 1), 1, 144, bias=False),
+        case("depthwise 5x5/2 on odd H, W, C 240", (2, 63, 65, 240), (240, 5, 5, 1), 2, 240, bias=False),
+        case("I 3, 7x7/2 on odd H, W", (2, 255, 253, 3), (64, 7, 7, 3), 2, 1),
+        case("I 36, 3x3/2 on odd H, W", (2, 63, 65, 36), (72, 3, 3, 36), 2, 1),
+        case("dense 3x3/2 on odd H, W, C 256", (2, 33, 31, 256), (512, 3, 3, 256), 2, 1),
+        case("classifier FC, K 12544 (quant_classifier)", (2000, 1, 1, 12544), (1024, 1, 1, 12544), 1, 1),
+        case("input amax 0", (2, 64, 64, 256), (256, 3, 3, 256), 1, 1, zeros=True),
+    ]
+
+
+def hold_int8(name, x, w, sx, sw, bias, stride, groups):
+    """K7 bit-equal to int8_conv_plain in float32 and bfloat16; a second
+    launch the same bits. Returns the largest ``|kernel - plain|`` and
+    ``|kernel - kernel again|`` over both dtypes."""
+    err = gap = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        got = int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype)
+        again = int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype)
+        want = int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, dtype)
+        torch.cuda.synchronize()
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        gap = max(gap, float((got.float() - again.float()).abs().max()))
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"K7 ({name}, {dtype}): {int((got != want).sum())} values differ from the plain "
+                                 f"version (at most {err}), {int((got != again).sum())} between two launches")
+    return err, gap
+
+
+def int8_site_table(calls, flush):
+    """Each distinct site shape of one request: held (both dtypes, twice),
+    then timed at the path's dtype beside its bound, the plain version, the
+    bf16 cuDNN convolution of the same shape and, for the FC sites,
+    ``torch._int_mm``. Returns the summed per-request fields."""
+    shapes = {}
+    for args in calls:
+        x, w, sx, sw, bias, stride, groups, dtype = args
+        key = (tuple(x.shape), tuple(w.shape), stride, groups, bias is not None, dtype)
+        shapes.setdefault(key, [args, 0])[1] += 1
+    totals = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, cudnn_ms=0.0, int_mm_ms=0.0, fc_ms=0.0,
+                  max_abs_err=0.0, relaunch_max_abs_diff=0.0)
+    for (xs, ws, stride, groups, has_bias, dtype), (args, count) in shapes.items():
+        x, w, sx, sw, bias = args[:5]
+        err, gap = hold_int8("path", x, w, sx, sw, bias, stride, groups)
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        totals["relaunch_max_abs_diff"] = max(totals["relaunch_max_abs_diff"], gap)
+        n, h, wd, c = xs
+        o, kh, kw, cg = ws
+        ho, wo = -(-h // stride), -(-wd // stride)
+        ops = 2.0 * n * ho * wo * o * kh * kw * cg
+        nbytes = x.numel() + w.numel() + 4 * (1 + o + (o if has_bias else 0)) + n * ho * wo * o * y_item(dtype)
+        k = kernel_ms(lambda: int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype), 10, flush)
+        path = int8_kernel.int8_conv.last_path
+        p = kernel_ms(lambda: int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, dtype), 3, flush)
+        # the float op the site replaces: cuDNN on the same shape in bf16, pads applied beforehand
+        top, bottom = layers.same_pad_amounts(h, kh, stride)
+        left, right = layers.same_pad_amounts(wd, kw, stride)
+        xf = F.pad(x.permute(0, 3, 1, 2).to(torch.bfloat16), (left, right, top, bottom))
+        xf = xf.contiguous(memory_format=torch.channels_last)
+        wf = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        lib = kernel_ms(lambda: F.conv2d(xf, wf, None, stride, 0, 1, groups), 10, flush)
+        line = (f"  {xs} * {ws} /{stride} g{groups} x{count}: kernel {k:.4f} ms ({path}),"
+                f" bound {max(ops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3:.4f} ms, plain {p:.3f} ms, "
+                f"bf16 cuDNN {lib:.4f} ms")
+        if h == wd == kh == kw == 1:
+            a, b = x.reshape(n, c), w.reshape(o, c).t()
+            try:
+                mm = kernel_ms(lambda: torch._int_mm(a, b), 10, flush)
+                line += f", torch._int_mm {mm:.4f} ms"
+                totals["int_mm_ms"] += mm * count
+                totals["fc_ms"] += k * count
+            except RuntimeError as e:
+                line += f", torch._int_mm refused: {str(e).splitlines()[0][:80]}"
+        log(line)
+        totals["ms"] += k * count
+        totals["plain_ms"] += p * count
+        totals["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3 * count
+        totals["ops_ms"] += ops / INT8_OPS * 1e3 * count
+        totals["cudnn_ms"] += lib * count
+    return totals, len(shapes)
+
+
+def y_item(dtype):
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def forward_ms(model, images, metas, reps=10):
+    """Median ms of the device forward by CUDA events, after 3 warm-up calls."""
+    with torch.no_grad():
+        for _ in range(3):
+            model(images, metas)
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(images, metas)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def box_iou(a, b):
+    y1, x1 = np.maximum(a[:, None, 0], b[None, :, 0]), np.maximum(a[:, None, 1], b[None, :, 1])
+    y2, x2 = np.minimum(a[:, None, 2], b[None, :, 2]), np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.clip(y2 - y1, 0, None) * np.clip(x2 - x1, 0, None)
+    area = lambda r: (r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])
+    return inter / np.maximum(area(a)[:, None] + area(b)[None, :] - inter, 1e-9)
+
+
+def top5_match(ref, got):
+    """Share of ``ref``'s top-5 detections that ``got`` has too (same class, IoU >= 0.9)."""
+    top = np.argsort(-ref["scores"])[:5]
+    if len(top) == 0 or len(got["scores"]) == 0:
+        return 0.0
+    iou = box_iou(ref["rois"][top].astype(np.float64), got["rois"].astype(np.float64))
+    same = ref["class_ids"][top][:, None] == got["class_ids"][None, :]
+    return float(np.mean(((iou >= 0.9) & same).any(axis=1)))
+
+
+def int8_cross_check(device):
+    """Phase 17d: a small float32 int8 model (both head switches), calibrated
+    once on the CPU, served on the card (cast for serving, TF32 off) and on
+    the CPU. Every int8 site call of the CPU's forward, its input handed to the
+    card's site, gives the CPU's output bit for bit (quantization on the
+    card, K7, the epilogue). End to end the two only agree in distribution:
+    a float op rounded another way (cuDNN's batch norm, say) moves a value
+    across a rounding boundary of the next quantization, and the flip spreads.
+    So end to end holds only floors that a wiring fault falls below: C2-C5
+    and P2-P6 within ``CROSS_MAX_REL_L2`` relative L2, and
+    ``CROSS_MIN_CLASSES`` of detection classes equal."""
+    cfg = MaskRCNNConfig(image_shape=(128, 128, 3), rpn_anchor_scales=(8, 16, 32, 64, 128), backbone="resnet18",
+                         top_down_pyramid_size=64, fpn_cls_fc_layers_size=64, mask_conv_channels=64,
+                         pre_nms_limit=256, post_nms_rois_inference=64, num_classes=3, compute_dtype="float32",
+                         detection_min_confidence=0.0, quant_classifier=True, quant_mask_head=True)
+    rs = np.random.RandomState(SEED + 18)
+    img = torch.from_numpy(np.stack([smooth_image(rs, 128, 128) for _ in range(2)]))
+    meta = torch.zeros((2, cfg.meta_size))
+    meta[:, 7:11] = torch.tensor([0.0, 0.0, 128.0, 128.0])
+    state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+    qcfg, qstate = quantize_for_inference(cfg, state, [(img, meta)], device="cpu")
+    models, outs, sites = {}, {}, []
+    for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        m = MaskRCNN(qcfg, device=dev)
+        m.load_state_dict(qstate)
+        m.cast_for_serving_()
+        seen = {}
+        m.backbone.register_forward_hook(lambda mod, i, o: seen.update(ends=o))
+        m.fpn.register_forward_hook(lambda mod, i, o: seen.update(pyramid=o[0]))
+        if key == "cpu":
+            for name, mod in m.named_modules():
+                if isinstance(mod, quant._Int8Site):
+                    mod.register_forward_hook(lambda mod, i, o, name=name: sites.append((name, i, o)))
+        with torch.no_grad():
+            out = m(img.to(dev), meta.to(dev))
+        feats = [seen["ends"][f"C{i}"] for i in range(2, 6)] + list(seen["pyramid"])
+        feats = [(f.q.float() * f.scale if isinstance(f, quant.QTensor) else f).cpu().double() for f in feats]
+        models[key], outs[key] = m, ({k: v.cpu() for k, v in out.items()}, feats)
+    to_card = lambda v: quant.QTensor(v.q.to(device), v.scale.to(device), v.dtype) if isinstance(v, quant.QTensor) \
+        else v.to(device)
+    with torch.no_grad():
+        for name, inputs, want in sites:
+            got = models["card"].get_submodule(name)(*(to_card(v) for v in inputs))
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"int8 site {name} on the card differs from the CPU on the CPU's input: "
+                                     f"{int((got.cpu() != want).sum())} of {want.numel()} values")
+    (gpu, gfeats), (cpu, cfeats) = outs["card"], outs["cpu"]
+    rel = max(float((g - c).norm() / c.norm()) for g, c in zip(gfeats, cfeats))
+    errs = {k: float((gpu[k] - cpu[k]).abs().max()) for k in ("rpn_logits", "mrcnn_probs")}
+    classes = float((gpu["detections"][..., 4] == cpu["detections"][..., 4]).float().mean())
+    log(f"  (d) tiny float32 int8 model (ResNet-18, 128x128, both head switches), card vs CPU with one calibration: "
+        f"all {len(sites)} int8 site calls bit-equal on the CPU's inputs; end to end C2-C5 and P2-P6 within "
+        f"{rel:.3g} relative L2, RPN logits {errs['rpn_logits']:.3g}, probabilities {errs['mrcnn_probs']:.3g}, "
+        f"{classes:.2f} of detection classes equal (rounding flips spread; held: relative L2 <= {CROSS_MAX_REL_L2}, "
+        f"classes >= {CROSS_MIN_CLASSES})")
+    if not (rel <= CROSS_MAX_REL_L2 and classes >= CROSS_MIN_CLASSES):
+        raise AssertionError(f"int8 card vs CPU: relative L2 {rel:.3g} (want <= {CROSS_MAX_REL_L2}), classes equal "
+                             f"{classes:.3f} (want >= {CROSS_MIN_CLASSES})")
+
+
+def run_int8(device, card, requests, flush, root):
+    """Phase 17 (see the module's docstring). Returns K7's kernels-line fields."""
+    start_phase = time.perf_counter()
+    cfg = flagship_config()
+    state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+    batches = list(request_batches(requests, cfg))
+    t = time.perf_counter()
+    qcfg, qstate = quantize_for_inference(cfg, state, batches, device=device)
+    calib_s = time.perf_counter() - t
+    amax = {k: float(v) for k, v in qstate.items() if quant.is_quant_buffer(k)}
+    log(f"== int8 serving: (a) quantize_for_inference on the flagship over the 4 requests in {calib_s:.2f} s: "
+        f"{len(amax)} amax entries, all > 0: {min(amax.values()) > 0}")
+    if not min(amax.values()) > 0:
+        raise AssertionError("a site's calibrated amax is 0")
+    int8 = Predictor(qcfg, qstate, device=device)
+    bf16 = Predictor(cfg, state, device=device)
+
+    log("  (b) K7 (csrc/int8_conv.cu) vs int8_conv_plain, bit for bit in float32 and bf16, each launched twice; "
+        "every site shape of one int8 request, timed at bf16 (L2 flushed before each launch)")
+    calls = capture_int8(int8, requests[0])[0]
+    if len(calls) != 65:
+        raise AssertionError(f"one int8 request made {len(calls)} K7 calls; expected 65")
+    totals, distinct = int8_site_table(calls, flush)
+    hcfg = cfg.replace(quant_classifier=True, quant_mask_head=True)
+    heads = int8_predictor(hcfg, state, batches, device)
+    seen = {(tuple(a[0].shape), tuple(a[1].shape)) for a in calls}
+    head_calls = [a for a in capture_int8(heads, requests[0])[0]
+                  if (tuple(a[0].shape), tuple(a[1].shape)) not in seen]
+    log("  the 6 head sites with quant_classifier and quant_mask_head:")
+    head_totals, _ = int8_site_table(head_calls, flush)
+    errs = [totals["max_abs_err"], head_totals["max_abs_err"]]
+    gaps = [totals["relaunch_max_abs_diff"], head_totals["relaunch_max_abs_diff"]]
+    for case in int8_cases(device):
+        err, gap = hold_int8(*case)
+        errs.append(err)
+        gaps.append(gap)
+        x, w = case[1], case[2]
+        log(f"  {case[0]}: x {tuple(x.shape)}, w {tuple(w.shape)} ({int8_kernel.int8_conv.last_path}): "
+            "bit-equal in float32 and bf16, twice")
+    del calls, head_calls
+    bound = max(totals["bytes_ms"], totals["ops_ms"])
+    log(f"  K7 a request of 2 images: {totals['ms']:.3f} ms over 65 launches ({distinct} shapes), bound "
+        f"{bound:.4f} ms ({'operations' if totals['ops_ms'] >= totals['bytes_ms'] else 'bytes'}: ops "
+        f"{totals['ops_ms']:.4f}, bytes {totals['bytes_ms']:.4f}), plain {totals['plain_ms']:.2f} ms, the bf16 cuDNN "
+        f"convolutions of the same shapes {totals['cudnn_ms']:.3f} ms ({card})")
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    int8_kernel.int8_conv.launches = 0
+    int8_results = []
+    for images in requests:
+        before = launch_counts()[:2] + (int8_kernel.int8_conv.launches,)
+        results = int8.detect(images)
+        rose = tuple(a - b for a, b in zip(launch_counts()[:2] + (int8_kernel.int8_conv.launches,), before))
+        if rose != (2, 2, 65):
+            raise AssertionError(f"an int8 request launched (NMS, ROIAlign, K7) = {rose}; expected (2, 2, 65)")
+        check_results(results, images, cfg)
+        int8_results.append(results)
+    launches = {"nms": nms_kernel.greedy_nms.launches, "roi_align": roi_kernel.roi_align.launches,
+                "int8_conv": int8_kernel.int8_conv.launches}
+    log(f"  (c) 4 int8 requests of 2 images: launches {launches}, (2, 2, 65) each; detections "
+        f"{[[len(r['class_ids']) for r in rr] for rr in int8_results]}")
+
+    before = int8_kernel.int8_conv.launches
+    check_results(heads.detect(requests[1]), requests[1], cfg)
+    heads_launches = int8_kernel.int8_conv.launches - before
+    if heads_launches != 71:
+        raise AssertionError(f"with both head switches a request launched K7 {heads_launches} times; expected 71")
+    del heads
+    # ResNeXt-50: 16 blocks x 3 convs + 4 downsamples, 8 FPN convs, 5 RPN levels; MobileNet V2: the expand
+    # and project convs of its 17 blocks but the first's expand (depthwise sites stay in bf16), 8 + 5
+    zoo_counts, zoo_ms, zoo_want = {}, {}, {"resnext50": 65, "mobilenetv2": 46}
+    for name, want in zoo_want.items():
+        zcfg = cfg.replace(backbone=name)
+        zstate = lecun_init_(MaskRCNN(zcfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+        pred = int8_predictor(zcfg, zstate, batches[:1], device)
+        zcalls, results, zoo_counts[name] = capture_int8(pred, requests[1])
+        check_results(results, requests[1], zcfg)
+        if zoo_counts[name] != want or len(zcalls) != want:
+            raise AssertionError(f"an int8 request on {name} launched K7 {zoo_counts[name]} times; expected {want}")
+        log(f"  {name}: {want} K7 launches a request; its site shapes:")
+        ztotals, zdistinct = int8_site_table(zcalls, flush)
+        zoo_ms[name] = ztotals["ms"]
+        errs.append(ztotals["max_abs_err"])
+        gaps.append(ztotals["relaunch_max_abs_diff"])
+        log(f"  {name}: K7 {ztotals['ms']:.3f} ms a request of 2 images over {want} launches ({zdistinct} shapes), "
+            f"bound {max(ztotals['bytes_ms'], ztotals['ops_ms']):.4f} ms, the bf16 cuDNN convolutions of the same "
+            f"shapes {ztotals['cudnn_ms']:.3f} ms ({card})")
+        del pred, zcalls
+        torch.cuda.empty_cache()
+    log(f"  K7 launches a request: {heads_launches} with quant_classifier and quant_mask_head; ResNeXt-50 "
+        f"{zoo_counts['resnext50']}, MobileNet V2 {zoo_counts['mobilenetv2']} (depthwise sites in bf16); every "
+        f"held shape {max(errs)} from the plain version, {max(gaps)} between two launches")
+
+    bf16_results = [bf16.detect(images) for images in requests]
+    shares = [top5_match(b, q) for bb, qq in zip(bf16_results, int8_results) for b, q in zip(bb, qq)]
+    molded = torch.cat([m for m, _ in batches]).to(device)
+    metas = torch.cat([m for _, m in batches]).to(device)
+    times = {}
+    for b in (2, 8):
+        for name, pred in (("bf16", bf16), ("int8", int8)):
+            times[(name, b)] = forward_ms(pred.model, molded[:b], metas[:b])
+    log(f"  top-5 bf16 detections that int8 matches (same class, IoU >= 0.9), per image: "
+        f"{[round(v, 2) for v in shares]}, mean {np.mean(shares):.3f} (held >= {TOP5_FLOOR})")
+    if not np.mean(shares) >= TOP5_FLOOR:
+        raise AssertionError(f"int8 matches {np.mean(shares):.3f} of bf16's top-5 detections; want >= {TOP5_FLOOR}")
+    log(f"  forward (CUDA events, median of 10 after 3 warm-up): batch 2 bf16 {times[('bf16', 2)]:.2f} ms, int8 "
+        f"{times[('int8', 2)]:.2f} ms; batch 8 bf16 {times[('bf16', 8)]:.2f} ms, int8 {times[('int8', 8)]:.2f} ms "
+        f"({card})")
+    del int8, bf16
+    torch.cuda.empty_cache()
+
+    int8_cross_check(device)
+
+    rs = np.random.RandomState(SEED + 19)
+    paths = []
+    for i, hw in enumerate(((480, 640), (375, 500), (512, 384))):
+        paths.append(os.path.join(root, f"int8_{i}.jpg"))
+        image_io.imwrite(paths[-1], smooth_image(rs, *hw))
+    printed = io.StringIO()
+    before = int8_kernel.int8_conv.launches
+    with contextlib.redirect_stdout(printed):
+        results = cli_detect.main(["--images", *paths, "--int8", "--checkpoints_dir", os.path.join(root, "int8_cli"),
+                                   "--out", os.path.join(root, "int8_out"), "--device", device.type])
+    served = int8_kernel.int8_conv.launches - before
+    for img_path, r in zip(paths, results):
+        if not (np.all(np.isfinite(r["scores"])) and np.all(np.isfinite(r["rois"]))
+                and os.path.getsize(os.path.join(root, "int8_out", os.path.basename(img_path)[:-4] + ".json"))):
+            raise AssertionError(f"cli.detect --int8 on {img_path}: {r}")
+    if len(results) != 3 or served != 3 * 65:
+        raise AssertionError(f"cli.detect --int8 served {len(results)} images with {served} K7 launches; "
+                             "expected 3 and 195")
+    log(f"  (e) cli.detect --int8 on 3 JPEGs (random weights, no checkpoint; detection_min_confidence 0.7): "
+        f"{[len(r['class_ids']) for r in results]} detections, finite, JSON written, K7 launched {served} times")
+    log(f"== int8 phase done in {time.perf_counter() - start_phase:.1f} s")
+    return dict(
+        name="int8_conv", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/int8_conv.cu",
+        replaces="maskrcnn_tf2_tpu/models/quant.py:76 (XLA's s8 conv_general_dilated; no Pallas counterpart)",
+        launches=launches["int8_conv"], max_abs_err=max(errs), relaunch_max_abs_diff=max(gaps), ms=totals["ms"],
+        plain_ms=totals["plain_ms"], bound_ms=bound, bound_by="operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes",
+        library_ms=totals["cudnn_ms"],
+        library="bf16 cuDNN convolutions (F.conv2d) of the same shapes: no PyTorch call computes an int8 "
+                "convolution on CUDA",
+        fc_ms=head_totals["fc_ms"], fc_int_mm_ms=head_totals["int_mm_ms"], heads_ms=head_totals["ms"],
+        heads_library_ms=head_totals["cudnn_ms"],
+        forward_ms={f"{name}_batch{b}": v for (name, b), v in times.items()},
+        top5_match=float(np.mean(shares)), heads_launches=heads_launches, zoo_launches=zoo_counts,
+        zoo_ms=zoo_ms,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
@@ -1879,7 +2292,7 @@ def main() -> None:
     log(f"== device: {torch.cuda.get_device_name(0)} ({card}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible")
 
-    logs = _build.build(["nms", "roi_align"])
+    logs = _build.build(["nms", "roi_align", "int8_conv"])
     for name, out in logs.items():
         log(f"== build {name}.cu:\n" + "\n".join("  " + ln for ln in out.strip().splitlines()))
     log(f"== build done at {time.time() - t0:.1f} s (into {_build.BUILD_DIR})")
@@ -1942,7 +2355,7 @@ def main() -> None:
     nms_train = hold_nms(tcalls["nms"], flush)
     roi_train = hold_roi_align(tcalls["roi_align"], flush)
     bwd_stats = hold_roi_backward(tcalls["roi_align_backward"], flush)
-    del tcalls, flush
+    del tcalls
     tiny_train_cross_check(device)
     train_launches = run_training(state, step, batch, gen, card)
     del state, step, batch
@@ -1959,6 +2372,8 @@ def main() -> None:
         cli_launches = run_train_cli(device, card, root)
         torch.cuda.empty_cache()
         dp = run_data_parallel(device, card, root, loop_ips)
+        torch.cuda.empty_cache()
+        k7 = run_int8(device, card, requests, flush, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
@@ -1986,6 +2401,7 @@ def main() -> None:
              launches=train_launches["roi_align_backward"],
              train_model_launches=loop_launches["roi_align_backward"], **bwd_stats, library_ms=None,
              **extra["roi_align_backward"]),
+        k7,
     ]
     log(f"== done at {time.time() - t0:.1f} s; forward kernels' times per served batch of 2 images "
         f"(ms) and per training step (train_ms), the backward's per training step of 2 images (both "
@@ -1997,7 +2413,9 @@ def main() -> None:
         f"{len(backbone_names())} requests of the sweep and 2 steps from pretrained files; train_cli_launches: "
         f"the training CLI's steps and eval steps with host augmentation; data_parallel_launches: rank 0's "
         f"in train_model under two gloo ranks, 6 steps and 4 eval steps; data_parallel_ms and its plain and "
-        f"bound: rank 0's first data-parallel step (one image a rank, both call sites summed)")
+        f"bound: rank 0's first data-parallel step (one image a rank, both call sites summed); int8_conv: ms, "
+        f"plain_ms, bound_ms and library_ms summed over the 65 sites of one int8 request of 2 images, launches "
+        f"the 4 int8 requests'")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

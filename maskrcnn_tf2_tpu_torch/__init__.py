@@ -2,8 +2,8 @@
 
 Serves the inference forward, trains from random or pretrained ResNet
 weights and evaluates COCO AP on an NVIDIA Hopper card, with hand-written
-CUDA kernels (``csrc/``) for greedy NMS and pyramid ROIAlign, forward and
-backward. The package imports PyTorch, numpy and the standard library only;
+CUDA kernels (``csrc/``) for greedy NMS, pyramid ROIAlign, forward and
+backward, and the int8 convolution of post-training quantization. The package imports PyTorch, numpy and the standard library only;
 it never imports JAX or the JAX package. Entry points
 (``predictor.Predictor``, ``models.mask_rcnn.MaskRCNN``, ``train.train_step``,
 ``train.loop.train_model``, the ``cli`` modules) run on the card unless the

@@ -3,13 +3,14 @@ port (counterpart of ``maskrcnn_tf2_tpu/cli/detect.py``).
 
 Usage:
   python -m maskrcnn_tf2_tpu_torch.cli.detect --checkpoints_dir logs \\
-      --backbone resnet50 --num_classes 81 --images a.jpg b.jpg [--out out/] [--device cpu]
+      --backbone resnet50 --num_classes 81 --images a.jpg b.jpg [--out out/] [--int8] [--device cpu]
 
 With ``--out``, each image gets ``{name}.json`` (rois, class_ids, scores) and
 ``{name}_det.png``: each detection's box outlined in red (2 px, as
 ``cv2.rectangle`` draws it) and its mask blended half with green, detection
-by detection. ``--device`` defaults to the card and raises without one.
-``--int8`` and ``--build_engine`` are not ported yet.
+by detection. ``--int8`` calibrates on the ``--images``, one image a batch,
+then serves the int8 model (``export/quantize.py``). ``--device`` defaults
+to the card and raises without one. ``--build_engine`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.data import image_io, raster
 from maskrcnn_tf2_tpu_torch.device import resolve_device
+from maskrcnn_tf2_tpu_torch.export.inference import process_input
+from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
 from maskrcnn_tf2_tpu_torch.train.train_step import create_train_state
@@ -47,13 +50,12 @@ def main(argv=None):
     p.add_argument("--checkpoints_dir", default="logs")
     p.add_argument("--images", nargs="+", default=None, help="image paths")
     p.add_argument("--out", default=None, help="directory for JSON + overlays")
-    p.add_argument("--int8", action="store_true", help="not ported yet (ROADMAP A.8)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 post-training quantization: calibrate on the images, then serve the int8 model")
     p.add_argument("--build_engine", default=None, metavar="PATH", help="not ported yet (ROADMAP A.9)")
     p.add_argument("--engine_batch", type=int, default=1, help="not ported yet (ROADMAP A.9)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.int8:
-        p.error("--int8: int8 post-training quantization is not ported to PyTorch yet (ROADMAP A.8)")
     if args.build_engine:
         p.error("--build_engine: serving engines are not ported to PyTorch yet (ROADMAP A.9)")
     if args.images is None:
@@ -73,7 +75,15 @@ def main(argv=None):
     if epoch == 0:
         print("WARNING: no checkpoint found — using random weights")
 
-    pred = Predictor(cfg, state.model.state_dict(), device=device)
+    state_dict = state.model.state_dict()
+    if args.int8:
+        def calib_batches():
+            for path in args.images:
+                molded, meta = process_input(image_io.imread(path), cfg, image_id=0)
+                yield torch.from_numpy(molded[None]), torch.from_numpy(meta[None])
+
+        cfg, state_dict = quantize_for_inference(cfg, state_dict, calib_batches(), device=device)
+    pred = Predictor(cfg, state_dict, device=device)
     results = []
     for path in args.images:
         img = image_io.imread(path)

@@ -5,8 +5,10 @@ imports nothing of the JAX package: the same frozen dataclass, the same knob
 names and defaults, ``to_dict``/``from_dict`` and the derived quantities. A
 dict written by either package builds the same configuration in the other.
 Knobs that only steer a TPU rewrite (``proposal_approx_topk``,
-``rpn_slim_inference``, ``quant_*``, the mesh and parallel fields) are kept
-for that round trip; the port's inference path reads none of them.
+``rpn_slim_inference``, the mesh and parallel fields) are kept for that round
+trip; the port's inference path reads none of them. ``quant_mode``,
+``quant_classifier`` and ``quant_mask_head`` build the int8 model
+(``models/quant.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -160,6 +162,8 @@ class MaskRCNNConfig:
             raise ValueError("one anchor scale per pyramid level")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
+        if self.quant_mode not in ("off", "calib", "int8"):
+            raise ValueError(f"quant_mode {self.quant_mode!r}: off, calib or int8")
         if self.parallel_mode != "shard_map" or self.tp_shards != 1:
             raise ValueError("parallel_mode='gspmd' and tp_shards > 1 (tensor parallelism of the classifier FCs) "
                              "are not in the port yet (ROADMAP A.6b): use parallel_mode='shard_map', tp_shards=1")

@@ -9,6 +9,8 @@ of 3x3 or 5x5, squeeze-excite ``se_reduce``/``se_expand``, ``project``
 without an activation, the input added when the stride is 1 and the width
 unchanged), swish after every other batch norm, batch-norm epsilon 1e-3.
 C1..C5 are taken by stride as in MobileNet V2; there is no head conv.
+``quant`` makes the expand, depthwise and project convs quantizable sites, as
+in ``mobilenet.py``; the stem stays in floating point.
 """
 
 from __future__ import annotations
@@ -60,18 +62,19 @@ def round_repeats(repeats: int, depth: float) -> int:
 
 
 class MBConv(nn.Module):
-    def __init__(self, cin: int, kernel: int, stride: int, expand: int, features: int, se_ratio: float = 0.25):
+    def __init__(self, cin: int, kernel: int, stride: int, expand: int, features: int, se_ratio: float = 0.25,
+                 quant: str = "off"):
         super().__init__()
         self.stride, self.out_channels = stride, features
         self.has_expand = expand != 1
         mid = cin * expand
         if self.has_expand:
-            add_conv_bn(self, "expand", cin, mid, 1)
-        add_conv_bn(self, "dw", mid, mid, kernel, stride, groups=mid)
+            add_conv_bn(self, "expand", cin, mid, 1, quant=quant)
+        add_conv_bn(self, "dw", mid, mid, kernel, stride, groups=mid, quant=quant)
         se_ch = max(1, int(cin * se_ratio))  # counts the block's input channels, not the expanded ones
         self.se_reduce = Linear(mid, se_ch)
         self.se_expand = Linear(se_ch, mid)
-        add_conv_bn(self, "project", mid, features, 1)
+        add_conv_bn(self, "project", mid, features, 1, quant=quant)
         self.residual = stride == 1 and cin == features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +86,7 @@ class MBConv(nn.Module):
 
 
 class EfficientNet(nn.Module):
-    def __init__(self, width: float = 1.0, depth: float = 1.0):
+    def __init__(self, width: float = 1.0, depth: float = 1.0, quant: str = "off"):
         super().__init__()
         self.width, self.depth = width, depth
         stem = round_filters(32, width)
@@ -94,7 +97,8 @@ class EfficientNet(nn.Module):
             features = round_filters(features, width)
             for r in range(round_repeats(repeats, depth)):
                 name = f"block{len(self.blocks)}"
-                self.add_module(name, MBConv(cin, kernel, first_stride if r == 0 else 1, expand, features))
+                self.add_module(name, MBConv(cin, kernel, first_stride if r == 0 else 1, expand, features,
+                                             quant=quant))
                 self.blocks.append(name)
                 cin = features
         self.endpoint_channels = channels_by_stride(stem, [getattr(self, n) for n in self.blocks])

@@ -4,7 +4,8 @@
 The JAX package's 25 keys: the fifteen ResNet-family variants, MobileNet V1
 and V2, and EfficientNet B0-B7. Every backbone exposes ``endpoint_channels``,
 the widths of C2..C5 that the FPN's laterals take. ``leaky_relu`` reaches the
-ResNet family only, as in the JAX package.
+ResNet family only, as in the JAX package; ``quant`` (``config.quant_mode``)
+reaches every family's block convs.
 """
 
 from __future__ import annotations
@@ -20,15 +21,15 @@ def backbone_names():
     return sorted(RESNET_VARIANTS) + ["mobilenet", "mobilenetv2"] + sorted(EFFICIENTNET_PARAMS)
 
 
-def get_backbone(name: str, leaky_relu: bool = False) -> nn.Module:
+def get_backbone(name: str, leaky_relu: bool = False, quant: str = "off") -> nn.Module:
     name = name.lower()
     if name in RESNET_VARIANTS:
-        return ResNet(leaky_relu=leaky_relu, **RESNET_VARIANTS[name])
+        return ResNet(leaky_relu=leaky_relu, quant=quant, **RESNET_VARIANTS[name])
     if name == "mobilenet":
-        return MobileNetV1()
+        return MobileNetV1(quant=quant)
     if name == "mobilenetv2":
-        return MobileNetV2()
+        return MobileNetV2(quant=quant)
     if name in EFFICIENTNET_PARAMS:
         width, depth = EFFICIENTNET_PARAMS[name]
-        return EfficientNet(width=width, depth=depth)
+        return EfficientNet(width=width, depth=depth, quant=quant)
     raise ValueError(f"unknown backbone '{name}'; available: {backbone_names()}")

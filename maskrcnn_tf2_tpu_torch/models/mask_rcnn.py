@@ -32,6 +32,13 @@ package threads ``bn_axis`` into each of them; the FPN and the RPN have none.
 Without a group such a model serves (running averages need no ranks), and a
 forward on batch statistics raises, as the JAX step does outside
 ``shard_map``.
+
+``config.quant_mode`` (``off``, ``calib``, ``int8``; ``models/quant.py``)
+reaches the backbone's block convs, the FPN and the RPN's shared conv, and,
+under ``quant_classifier`` and ``quant_mask_head``, the classifier's two FCs
+and the mask head's four convs, as in the JAX package. Each site carries its
+calibrated amax as a buffer, in the ``state_dict`` (``export/quantize.py``
+fills them). An int8 model serves only: ``train_step`` refuses it.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from maskrcnn_tf2_tpu_torch.models.backbones.factory import get_backbone
 from maskrcnn_tf2_tpu_torch.models.fpn import FPN
 from maskrcnn_tf2_tpu_torch.models.heads import FPNClassifierHead, FPNMaskHead
 from maskrcnn_tf2_tpu_torch.models.layers import sync_batch_norms_
+from maskrcnn_tf2_tpu_torch.models.quant import freeze_int8_sites_
 from maskrcnn_tf2_tpu_torch.models.rpn import RPNHead
 from maskrcnn_tf2_tpu_torch.ops.anchors import get_anchors
 from maskrcnn_tf2_tpu_torch.ops.detection import refine_detections
@@ -89,16 +97,18 @@ class MaskRCNN(nn.Module):
         self.config = cfg
         self.bn_group = group if cfg.sync_bn else None
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
-        self.backbone = get_backbone(cfg.backbone, leaky_relu=cfg.resnet_leaky_relu)
-        self.fpn = FPN(self.backbone.endpoint_channels, cfg.top_down_pyramid_size)
-        self.rpn = RPNHead(cfg.top_down_pyramid_size, cfg.anchors_per_location, conv_channels=512)
+        quant = cfg.quant_mode
+        self.backbone = get_backbone(cfg.backbone, leaky_relu=cfg.resnet_leaky_relu, quant=quant)
+        self.fpn = FPN(self.backbone.endpoint_channels, cfg.top_down_pyramid_size, quant=quant)
+        self.rpn = RPNHead(cfg.top_down_pyramid_size, cfg.anchors_per_location, conv_channels=512, quant=quant)
         self.classifier = FPNClassifierHead(
             cfg.top_down_pyramid_size, cfg.num_classes, cfg.pool_size,
             cfg.fpn_cls_fc_layers_size, leaky_relu=cfg.cls_head_leaky_relu,
+            quant=quant if cfg.quant_classifier else "off",
         )
         self.mask_head = FPNMaskHead(
             cfg.top_down_pyramid_size, cfg.num_classes, cfg.mask_conv_channels,
-            leaky_relu=cfg.mask_head_leaky_relu,
+            leaky_relu=cfg.mask_head_leaky_relu, quant=quant if cfg.quant_mask_head else "off",
         )
         if cfg.sync_bn:
             for m in (self.backbone, self.classifier, self.mask_head):
@@ -116,7 +126,10 @@ class MaskRCNN(nn.Module):
     def cast_for_serving_(self) -> "MaskRCNN":
         """Cast every non-batch-norm parameter to the compute dtype, in place,
         so that serving casts nothing at use. Such a model has lost its
-        float32 master weights: serve with it, do not train it."""
+        float32 master weights: serve with it, do not train it. An int8
+        model's sites first quantize their float32 weights once
+        (``quant.freeze_int8_sites_``)."""
+        freeze_int8_sites_(self)
         for m in self.modules():
             if not isinstance(m, nn.modules.batchnorm._BatchNorm):
                 for p in m.parameters(recurse=False):
@@ -132,8 +145,8 @@ class MaskRCNN(nn.Module):
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         x = x.contiguous(memory_format=torch.channels_last)
         endpoints = self.backbone(x)
-        if cfg.frozen_backbone:
-            endpoints = {k: v.detach() for k, v in endpoints.items()}
+        if cfg.frozen_backbone:  # a pre-quantized endpoint (int8 serving) carries no gradient
+            endpoints = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in endpoints.items()}
         rpn_feats, mrcnn_feats = self.fpn(endpoints)
         rpn_logits, rpn_probs, rpn_bbox = self.rpn(rpn_feats)
         if cfg.frozen_rpn_model:

@@ -26,7 +26,9 @@ from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 class Predictor:
     """Batched inference with host unmolding.
 
-    ``state_dict`` is the port's (see ``weights.flax_to_state_dict``).
+    ``state_dict`` is the port's (see ``weights.flax_to_state_dict``); an
+    int8 configuration serves with the calibrated ``state_dict`` that
+    ``export.quantize.quantize_for_inference`` returns.
     ``device=None`` runs on the card and raises if there is none.
     """
 

@@ -16,14 +16,21 @@ of module found there:
   pooled patch keeps its (P, P, C) row order; the backbones' squeeze-excite
   ``fc1``/``fc2`` and ``se_reduce``/``se_expand`` Dense layers too);
 - batch norm: scale/bias/mean/var -> weight/bias/running_mean/running_var,
-  and ``num_batches_tracked`` is set to 0.
+  and ``num_batches_tracked`` is set to 0;
+- the ``quant`` collection of a calibrated model (the int8 sites' amax
+  scalars, ``models/quant.py``): a leaf at ``a/b/x_amax`` lands at the buffer
+  ``a.b.x_amax`` as it is.
 
 It raises on a leaf that maps nowhere, on a shape that does not match, and
-on any parameter or buffer of the model that is left unassigned. With
+on any parameter or buffer of the model that is left unassigned, with one
+exception: a block's ``out_amax`` may be missing (a calibration from before
+the quantized residual stream, which serves with that block's float edge,
+``models/backbones/resnet.py``). With
 ``params_only=True`` it converts a ``{"params"}`` tree alone (a gradient
 tree, say) to the model's parameter names and checks only the parameters.
 ``state_dict_to_flax`` is its inverse: a module's entries back to flax
-variables (``num_batches_tracked`` has no flax leaf and is dropped).
+variables (``num_batches_tracked`` has no flax leaf and is dropped; a
+calibrated model's amax buffers go to ``quant``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from maskrcnn_tf2_tpu_torch.models.quant import is_quant_buffer
 
 _BN = nn.modules.batchnorm._BatchNorm
 
@@ -64,6 +73,8 @@ def _convert_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str
 def _export_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str, str, np.ndarray]:
     """The inverse of ``_convert_param``, and of the batch-norm statistics'
     renaming: ``(collection, flax leaf, array)``."""
+    if is_quant_buffer(name):
+        return "quant", name, value
     if isinstance(module, _BN):
         leaf = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                 "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}[name]
@@ -82,8 +93,8 @@ def _export_param(module: nn.Module, name: str, value: np.ndarray) -> Tuple[str,
 def state_dict_to_flax(model: nn.Module) -> Dict[str, Dict]:
     """``model``'s parameters and batch-norm statistics as flax variables
     ``{"params", "batch_stats"}`` (nested dicts of float32 numpy arrays, copies
-    that later updates of the model leave alone), the tree
-    ``flax_to_state_dict`` reads."""
+    that later updates of the model leave alone), and ``quant`` for a
+    calibrated model: the tree ``flax_to_state_dict`` reads."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for key, tensor in model.state_dict().items():
         *path, name = key.split(".")
@@ -91,7 +102,7 @@ def state_dict_to_flax(model: nn.Module) -> Dict[str, Dict]:
             continue
         value = tensor.detach().to("cpu", torch.float32).numpy()
         coll, leaf, value = _export_param(model.get_submodule(".".join(path)), name, value)
-        node = out[coll]
+        node = out.setdefault(coll, {})
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = np.array(value, order="C")  # a copy: a CPU model's arrays would alias its tensors
@@ -101,7 +112,7 @@ def state_dict_to_flax(model: nn.Module) -> Dict[str, Dict]:
 def flax_to_state_dict(variables: Mapping, model: nn.Module, params_only: bool = False) -> Dict[str, torch.Tensor]:
     """Convert flax ``variables`` to a ``state_dict`` for ``model`` (only its
     parameters when ``params_only``)."""
-    extra = set(variables) - ({"params"} if params_only else {"params", "batch_stats"})
+    extra = set(variables) - ({"params"} if params_only else {"params", "batch_stats", "quant"})
     if extra:
         raise ValueError(f"unexpected variable collections {sorted(extra)}")
     target = dict(model.named_parameters()) if params_only else model.state_dict()
@@ -116,7 +127,7 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module, params_only: bool =
             raise ValueError(
                 f"{source}: shape {value.shape} does not fit {key!r} {tuple(target[key].shape)}"
             )
-        out[key] = torch.from_numpy(np.ascontiguousarray(value))
+        out[key] = torch.from_numpy(np.ascontiguousarray(value)).reshape(value.shape)  # 0-d stays 0-d
 
     def module_at(path: Tuple[str, ...], source: str) -> nn.Module:
         try:
@@ -135,12 +146,17 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module, params_only: bool =
         if not isinstance(module_at(path[:-1], source), _BN) or path[-1] not in stats_names:
             raise KeyError(f"no torch counterpart for {source}")
         assign(".".join(path[:-1] + (stats_names[path[-1]],)), value, source)
+    for path, value in _leaves(variables.get("quant", {})):
+        source = "quant/" + "/".join(path)
+        if not is_quant_buffer(path[-1]):
+            raise KeyError(f"no torch counterpart for {source}")
+        assign(".".join(path), value.reshape(()), source)
     if not params_only:
         for name, module in model.named_modules():
             if isinstance(module, _BN) and module.num_batches_tracked is not None:
                 out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
 
-    missing = sorted(set(target) - set(out))
+    missing = sorted(k for k in set(target) - set(out) if not k.endswith(".out_amax"))
     if missing:
         raise KeyError(f"model entries left unassigned by the flax variables: {missing}")
     return out

@@ -14,7 +14,9 @@ max|plain| in bf16 (both add in float32; the kernel in the fixed order ROI,
 sample row, sample column, corner, the same bits from run to run, the plain
 version's ``index_add_`` on the card with atomics in an order that changes).
 On the CPU ``index_add_`` adds in the kernel's order, so the model of the
-kernel's algorithm below equals the plain version bit for bit.
+kernel's algorithm below equals the plain version bit for bit. The int8
+convolution equal to its plain version bit for bit, in float32 and bfloat16:
+both sum integers exactly and round the epilogue at the same three steps.
 """
 
 import subprocess
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from maskrcnn_tf2_tpu_torch.device import resolve_device
+from maskrcnn_tf2_tpu_torch.kernels import int8_conv as port_int8_kernel
 from maskrcnn_tf2_tpu_torch.kernels import nms as port_nms_kernel
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as port_roi_kernel
 from maskrcnn_tf2_tpu_torch.ops.boxes import overlaps
@@ -327,6 +330,99 @@ def test_port_imports_no_jax():
 
 
 # ---------------------------------------------------------------------------
+# the int8 convolution (K7): the plain version against a loop, dispatch
+# ---------------------------------------------------------------------------
+
+# name -> (N, H, W, C, O, kernel, stride, groups, bias, amax scale of x)
+INT8_CASES = {
+    "3x3_s1_c64": (2, 16, 16, 64, 64, 3, 1, 1, True, 1.0),
+    "3x3_s2_odd_groups_of_4": (2, 17, 15, 128, 128, 3, 2, 32, False, 1.0),
+    "depthwise_3x3_s2": (2, 15, 16, 96, 96, 3, 2, 96, False, 1.0),
+    "depthwise_5x5": (1, 12, 12, 40, 40, 5, 1, 40, False, 1.0),
+    "1x1_s2_c256_o1024": (2, 16, 16, 256, 1024, 1, 2, 1, False, 1.0),
+    "c3_7x7_s2": (2, 21, 20, 3, 16, 7, 2, 1, True, 1.0),
+    "c36_3x3_s2_odd": (2, 13, 11, 36, 72, 3, 2, 1, True, 1.0),
+    "fc_k12544": (300, 1, 1, 12544, 1024, 1, 1, 1, True, 1.0),
+    "amax_0": (1, 8, 8, 64, 32, 3, 1, 1, True, 0.0),
+}
+
+
+def int8_case(name, device="cpu"):
+    """``(x [N, H, W, C] int8, w [O, k, k, C / g] int8, sx, sw, bias, stride, groups)``."""
+    n, h, wd, c, o, k, stride, groups, bias, amax = INT8_CASES[name]
+    rs = np.random.RandomState(sum(map(ord, name)))
+    x = rs.randint(-127, 128, (n, h, wd, c)) if amax else np.zeros((n, h, wd, c))
+    w = rs.randint(-127, 128, (o, k, k, c // groups))
+    sx = np.float32(max(amax, 1e-6) / 127)
+    sw = rs.uniform(1e-4, 1e-2, o).astype(np.float32)
+    b = rs.normal(size=o).astype(np.float32) if bias else None
+    dev = lambda a, dt: torch.tensor(a, dtype=dt, device=device)
+    return (dev(x, torch.int8), dev(w, torch.int8), dev(sx, torch.float32), dev(sw, torch.float32),
+            None if b is None else dev(b, torch.float32), stride, groups)
+
+
+def int8_conv_loop(x, w, stride, groups):
+    """The int32 sums by an explicit loop over taps and groups, in numpy int64."""
+    from maskrcnn_tf2_tpu_torch.models.layers import same_pad_amounts
+
+    x, w = x.numpy().astype(np.int64), w.numpy().astype(np.int64)
+    n, h, wd, c = x.shape
+    o, k, _, cg = w.shape
+    top, bottom = same_pad_amounts(h, k, stride)
+    left, right = same_pad_amounts(wd, k, stride)
+    xp = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)))
+    ho, wo = -(-h // stride), -(-wd // stride)
+    og = o // groups
+    acc = np.zeros((n, ho, wo, o), np.int64)
+    for g in range(groups):
+        for dy in range(k):
+            for dx in range(k):
+                patch = xp[:, dy : dy + stride * (ho - 1) + 1 : stride, dx : dx + stride * (wo - 1) + 1 : stride,
+                           g * cg : (g + 1) * cg]
+                acc[..., g * og : (g + 1) * og] += patch @ w[g * og : (g + 1) * og, dy, dx, :].T
+    return acc
+
+
+@pytest.mark.parametrize("case", ["3x3_s2_odd_groups_of_4", "depthwise_3x3_s2", "c3_7x7_s2", "c36_3x3_s2_odd",
+                                  "amax_0"])
+def test_int8_conv_plain_matches_a_loop(case):
+    x, w, sx, sw, bias, stride, groups = int8_case(case)
+    acc = port_int8_kernel.int8_conv_accumulate_plain(x, w, stride, groups)
+    np.testing.assert_array_equal(acc.numpy(), int8_conv_loop(x, w, stride, groups))
+    y = port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups)
+    want = acc.numpy().astype(np.float32) * (sx.numpy() * sw.numpy())
+    if bias is not None:
+        want = want + bias.numpy()
+    np.testing.assert_array_equal(y.numpy(), want)
+
+
+def test_int8_conv_cpu_takes_the_plain_version_without_launching():
+    before = port_int8_kernel.int8_conv.launches
+    x, w, sx, sw, bias, stride, groups = int8_case("3x3_s1_c64")
+    for dtype in (torch.float32, torch.bfloat16):
+        got = port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype)
+        want = port_int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, dtype)
+        assert got.dtype == dtype and got.shape == (2, 16, 16, 64) and torch.equal(got, want)
+    assert port_int8_kernel.int8_conv.launches == before
+
+
+def test_int8_conv_refuses_bad_inputs():
+    x, w, sx, sw, bias, stride, groups = int8_case("3x3_s1_c64")
+    with pytest.raises(TypeError):
+        port_int8_kernel.int8_conv(x.to(torch.int32), w, sx, sw, bias)
+    with pytest.raises(ValueError, match="groups"):
+        port_int8_kernel.int8_conv(x, w, sx, sw, bias, groups=3)
+    with pytest.raises(ValueError, match="overflow"):
+        big = torch.zeros((1, 1, 1, port_int8_kernel.MAX_K + 1), dtype=torch.int8)
+        port_int8_kernel.int8_conv(big, big, sx, torch.ones(1), None)
+    with pytest.raises(TypeError):
+        port_int8_kernel.int8_conv(x, w, sx, sw, bias, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        meta = [t.to("meta") for t in (x, w, sx, sw, bias)]
+        port_int8_kernel.int8_conv(*meta)
+
+
+# ---------------------------------------------------------------------------
 # the kernels on the card (skip without one; chip_smoke.py covers the same)
 # ---------------------------------------------------------------------------
 
@@ -478,3 +574,30 @@ def test_pyramid_roi_align_autograd_on_the_card(cuda):
     after = (port_roi_kernel.roi_align.launches, port_roi_kernel.roi_align_backward.launches)
     assert after == (before[0] + 1, before[1] + 1)
     assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_conv_kernel_matches_plain(cuda, dtype, case):
+    """Bit-equal to the plain version; two launches give the same bits."""
+    x, w, sx, sw, bias, stride, groups = int8_case(case, cuda)
+    before = port_int8_kernel.int8_conv.launches
+    got = port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype)
+    again = port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype)
+    want = port_int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, dtype)
+    torch.cuda.synchronize()
+    assert port_int8_kernel.int8_conv.launches == before + 2
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,path", [("3x3_s1_c64", "tiled dp4a words"), ("c3_7x7_s2", "tiled bytes"),
+                                       ("3x3_s2_odd_groups_of_4", "direct dp4a words"),
+                                       ("depthwise_3x3_s2", "direct bytes")])
+def test_int8_conv_kernel_path(cuda, case, path):
+    """The launcher reports the kernel and the loads it took."""
+    x, w, sx, sw, bias, stride, groups = int8_case(case, cuda)
+    port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups)
+    assert port_int8_kernel.int8_conv.last_path == path

@@ -315,7 +315,46 @@ def test_outline_rectangle_equals_cv2():
             assert np.mean(np.all(got == want, -1)) >= 0.99
 
 
-@pytest.mark.parametrize("flag,item", [(["--int8"], "ROADMAP A.8"), (["--build_engine", "engine.bin"], "ROADMAP A.9")])
+def test_detect_cli_int8_calibrates_and_serves(tmp_path, monkeypatch):
+    """``--int8`` calibrates on the images, one a batch, and serves the int8
+    model: the JSON equals ``Predictor.detect`` of ``quantize_for_inference``
+    over the same batches, and the overlay is written."""
+    from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
+    from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
+    from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
+    from maskrcnn_tf2_tpu_torch.train.train_step import create_train_state
+
+    monkeypatch.setattr(cli_detect, "MaskRCNNConfig", lambda **kw: MaskRCNNConfig(**{**TINY_WIDTHS, **kw}))
+    ckpt = str(tmp_path / "logs")
+    cfg = cli_detect.MaskRCNNConfig(backbone="resnet18", num_classes=4, image_shape=(64, 64, 3), image_min_dim=64,
+                                    image_max_dim=64, checkpoints_dir=ckpt)
+    state = create_train_state(cfg, torch.Generator().manual_seed(7), device="cpu")
+    with torch.no_grad():
+        state.model.rpn.rpn_class_raw.weight.mul_(0.1)
+    ckpt_lib.save(ckpt_lib.make_manager(cfg), state, 0, {"loss_sum": 1.0})
+    rs = np.random.RandomState(8)
+    paths = []
+    for i, hw in enumerate([(64, 64), (40, 72)]):
+        paths.append(str(tmp_path / f"img{i}.png"))
+        image_io.imwrite(paths[-1], rs.randint(0, 256, hw + (3,)).astype(np.uint8))
+    out = str(tmp_path / "out")
+    results = cli_detect.main(["--backbone", "resnet18", "--num_classes", "4", "--img_size", "64", "--checkpoints_dir",
+                               ckpt, "--images", *paths, "--out", out, "--int8", "--device", "cpu"])
+    imgs = [image_io.imread(path) for path in paths]
+    batches = [tuple(torch.from_numpy(a[None]) for a in port_inference.process_input(img, cfg, image_id=0))
+               for img in imgs]
+    qcfg, qstate = quantize_for_inference(cfg, state.model.state_dict(), batches, device="cpu")
+    pred = Predictor(qcfg, qstate, device="cpu")
+    for i, (img, r) in enumerate(zip(imgs, results)):
+        want = pred.detect([img])[0]
+        assert len(r["class_ids"]) > 0
+        with open(os.path.join(out, f"img{i}.json")) as f:
+            assert json.load(f) == {"rois": want["rois"].tolist(), "class_ids": want["class_ids"].tolist(),
+                                    "scores": want["scores"].tolist()}
+        assert image_io.imread(os.path.join(out, f"img{i}_det.png")).shape == img.shape
+
+
+@pytest.mark.parametrize("flag,item", [(["--build_engine", "engine.bin"], "ROADMAP A.9")])
 def test_detect_cli_names_what_is_not_ported(capsys, flag, item):
     from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
 
