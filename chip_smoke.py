@@ -164,10 +164,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                float32 and bf16, launched twice, and timed beside its bound
                (2 M N K operations at 1,979 int8 TOP/s, or its bytes at 3.35
                TB/s), the plain version, the bf16 cuDNN convolution of the
-               same shape and, for a 1x1 site, ``torch._int_mm``; the same
-               holds on ResNeXt's 4-channel groups, depthwise sites, I = 3 and
-               36, stride 2 on odd sizes, the classifier FC at K = 12544 and an
-               input whose amax is 0; (c) launch counts set to 0, then 4 int8
+               same shape and, for every 1x1 stride-1 site, ``torch._int_mm``
+               on the same int8 operands; each shape's plan (kernel, copy
+               width, grid, split of K) is logged, and every site of one
+               group must have run on the tensor-core path; the same holds
+               on ResNeXt's groups of 4 and 8, depthwise 3x3 and 5x5/2, I =
+               3, 4, 36 and 40, stride 2 on odd sizes, M, N and K tails, a
+               split of K, the classifier FC at K = 12544 and an input whose
+               amax is 0; before any of it, ``cuobjdump --dump-sass`` of the
+               built library must show int8 tensor-core instructions
+               (``IGMMA``, wgmma's) in every instantiation of the tensor-core
+               kernel; (c) launch counts set to 0, then 4 int8
                requests of 2 images: (NMS, ROIAlign, K7) = (2, 2, 65) each; 71
                K7 a request with ``quant_classifier`` and
                ``quant_mask_head``; one request each on ResNeXt-50 (65 K7)
@@ -1960,6 +1967,10 @@ def int8_cases(device):
         case("dense 3x3/2 on odd H, W, C 256", (2, 33, 31, 256), (512, 3, 3, 256), 2, 1),
         case("classifier FC, K 12544 (quant_classifier)", (2000, 1, 1, 12544), (1024, 1, 1, 12544), 1, 1),
         case("input amax 0", (2, 64, 64, 256), (256, 3, 3, 256), 1, 1, zeros=True),
+        case("I 4, 3x3, M, N and K tails", (3, 37, 29, 4), (40, 3, 3, 4), 1, 1),
+        case("I 40, 3x3/2 (8-byte copies)", (2, 31, 33, 40), (72, 3, 3, 40), 2, 1, bias=False),
+        case("split K: C5's 3x3 at M 512", (2, 16, 16, 512), (512, 3, 3, 512), 1, 1),
+        case("split K with M, N and K tails, I 112", (3, 7, 9, 112), (200, 3, 3, 112), 1, 1),
     ]
 
 
@@ -1981,18 +1992,26 @@ def hold_int8(name, x, w, sx, sw, bias, stride, groups):
     return err, gap
 
 
+def plan_text(p):
+    """A K7 plan (``int8_conv.last_plan``) for the log."""
+    tile = f", {p.tile}x{p.tile} tiles" if p.tile else ""
+    split = f", split {p.split} x {p.steps_per_split} steps of K" if p.split > 1 else ""
+    return f"{p.kernel}{tile}, {p.vec}-byte copies, grid {p.grid}{split}"
+
+
 def int8_site_table(calls, flush):
     """Each distinct site shape of one request: held (both dtypes, twice),
     then timed at the path's dtype beside its bound, the plain version, the
-    bf16 cuDNN convolution of the same shape and, for the FC sites,
-    ``torch._int_mm``. Returns the summed per-request fields."""
+    bf16 cuDNN convolution of the same shape and, for every 1x1 stride-1
+    site, ``torch._int_mm`` on the same int8 operands; a site of one group
+    must run on the tensor-core path. Returns the summed per-request fields."""
     shapes = {}
     for args in calls:
         x, w, sx, sw, bias, stride, groups, dtype = args
         key = (tuple(x.shape), tuple(w.shape), stride, groups, bias is not None, dtype)
         shapes.setdefault(key, [args, 0])[1] += 1
     totals = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, cudnn_ms=0.0, int_mm_ms=0.0, fc_ms=0.0,
-                  max_abs_err=0.0, relaunch_max_abs_diff=0.0)
+                  pointwise_ms=0.0, pointwise_int_mm_ms=0.0, max_abs_err=0.0, relaunch_max_abs_diff=0.0)
     for (xs, ws, stride, groups, has_bias, dtype), (args, count) in shapes.items():
         x, w, sx, sw, bias = args[:5]
         err, gap = hold_int8("path", x, w, sx, sw, bias, stride, groups)
@@ -2004,27 +2023,23 @@ def int8_site_table(calls, flush):
         ops = 2.0 * n * ho * wo * o * kh * kw * cg
         nbytes = x.numel() + w.numel() + 4 * (1 + o + (o if has_bias else 0)) + n * ho * wo * o * y_item(dtype)
         k = kernel_ms(lambda: int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype), 10, flush)
-        path = int8_kernel.int8_conv.last_path
+        path, plan = int8_kernel.int8_conv.last_path, int8_kernel.int8_conv.last_plan
+        if groups == 1 and path != "tensor-core":
+            raise AssertionError(f"K7 ran {xs} * {ws} (one group) on {path}, not the tensor-core path")
         p = kernel_ms(lambda: int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, dtype), 3, flush)
-        # the float op the site replaces: cuDNN on the same shape in bf16, pads applied beforehand
-        top, bottom = layers.same_pad_amounts(h, kh, stride)
-        left, right = layers.same_pad_amounts(wd, kw, stride)
-        xf = F.pad(x.permute(0, 3, 1, 2).to(torch.bfloat16), (left, right, top, bottom))
-        xf = xf.contiguous(memory_format=torch.channels_last)
-        wf = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        lib = kernel_ms(lambda: F.conv2d(xf, wf, None, stride, 0, 1, groups), 10, flush)
-        line = (f"  {xs} * {ws} /{stride} g{groups} x{count}: kernel {k:.4f} ms ({path}),"
+        lib, mm = int8_library_ms(x, w, stride, groups, flush)
+        line = (f"  {xs} * {ws} /{stride} g{groups} x{count}: kernel {k:.4f} ms ({plan_text(plan)}),"
                 f" bound {max(ops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3:.4f} ms, plain {p:.3f} ms, "
                 f"bf16 cuDNN {lib:.4f} ms")
-        if h == wd == kh == kw == 1:
-            a, b = x.reshape(n, c), w.reshape(o, c).t()
-            try:
-                mm = kernel_ms(lambda: torch._int_mm(a, b), 10, flush)
-                line += f", torch._int_mm {mm:.4f} ms"
+        if isinstance(mm, str):
+            line += f", torch._int_mm refused: {mm}"
+        elif mm is not None:
+            line += f", torch._int_mm {mm:.4f} ms"
+            totals["pointwise_int_mm_ms"] += mm * count
+            totals["pointwise_ms"] += k * count
+            if h == wd == 1:
                 totals["int_mm_ms"] += mm * count
                 totals["fc_ms"] += k * count
-            except RuntimeError as e:
-                line += f", torch._int_mm refused: {str(e).splitlines()[0][:80]}"
         log(line)
         totals["ms"] += k * count
         totals["plain_ms"] += p * count
@@ -2032,6 +2047,29 @@ def int8_site_table(calls, flush):
         totals["ops_ms"] += ops / INT8_OPS * 1e3 * count
         totals["cudnn_ms"] += lib * count
     return totals, len(shapes)
+
+
+def int8_library_ms(x, w, stride, groups, flush, reps=10):
+    """A K7 call's yardsticks, never used by the port: the float op the site
+    replaces (cuDNN on the same shape in bf16, pads applied beforehand) and,
+    at a 1x1 stride-1 site of one group, ``torch._int_mm`` on the same int8
+    operands (``None`` elsewhere, the first line of its error where it
+    refuses the shape)."""
+    n, h, wd, c = x.shape
+    o, kh, kw, _ = w.shape
+    top, bottom = layers.same_pad_amounts(h, kh, stride)
+    left, right = layers.same_pad_amounts(wd, kw, stride)
+    xf = F.pad(x.permute(0, 3, 1, 2).to(torch.bfloat16), (left, right, top, bottom))
+    xf = xf.contiguous(memory_format=torch.channels_last)
+    wf = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn = kernel_ms(lambda: F.conv2d(xf, wf, None, stride, 0, 1, groups), reps, flush)
+    if not (kh == kw == 1 and stride == 1 and groups == 1):
+        return cudnn, None
+    a, b = x.reshape(n * h * wd, c), w.reshape(o, c).t()
+    try:
+        return cudnn, kernel_ms(lambda: torch._int_mm(a, b), reps, flush)
+    except RuntimeError as e:
+        return cudnn, str(e).splitlines()[0][:80]
 
 
 def y_item(dtype):
@@ -2132,9 +2170,33 @@ def int8_cross_check(device):
                              f"{classes:.3f} (want >= {CROSS_MIN_CLASSES})")
 
 
+def tensor_core_instructions(name="int8_conv", kernel="int8_conv_mma_kernel"):
+    """The int8 tensor-core instructions (``IGMMA`` from wgmma, or ``IMMA``
+    from mma.sync) in the SASS of each instantiation of ``kernel`` in the
+    built ``csrc/<name>.cu``, by ``cuobjdump --dump-sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(_build._target(name))], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1].strip()
+            if kernel in function:
+                counts[function] = 0
+        elif function in counts and any(op in line for op in (" IGMMA", " IMMA")):
+            counts[function] += 1
+    return counts
+
+
 def run_int8(device, card, requests, flush, root):
     """Phase 17 (see the module's docstring). Returns K7's kernels-line fields."""
     start_phase = time.perf_counter()
+    sass = tensor_core_instructions()
+    log(f"== int8 serving: cuobjdump --dump-sass of csrc/int8_conv.cu: int8 tensor-core instructions in each "
+        f"instantiation of int8_conv_mma_kernel: {sorted(sass.values())} ({len(sass)} instantiations)")
+    if not sass or min(sass.values()) == 0:
+        raise AssertionError(f"the tensor-core kernel has no int8 tensor-core instruction in its SASS: {sass}")
+    sass_imma = min(sass.values())
     cfg = flagship_config()
     state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
     batches = list(request_batches(requests, cfg))
@@ -2142,7 +2204,7 @@ def run_int8(device, card, requests, flush, root):
     qcfg, qstate = quantize_for_inference(cfg, state, batches, device=device)
     calib_s = time.perf_counter() - t
     amax = {k: float(v) for k, v in qstate.items() if quant.is_quant_buffer(k)}
-    log(f"== int8 serving: (a) quantize_for_inference on the flagship over the 4 requests in {calib_s:.2f} s: "
+    log(f"  (a) quantize_for_inference on the flagship over the 4 requests in {calib_s:.2f} s: "
         f"{len(amax)} amax entries, all > 0: {min(amax.values()) > 0}")
     if not min(amax.values()) > 0:
         raise AssertionError("a site's calibrated amax is 0")
@@ -2169,14 +2231,16 @@ def run_int8(device, card, requests, flush, root):
         errs.append(err)
         gaps.append(gap)
         x, w = case[1], case[2]
-        log(f"  {case[0]}: x {tuple(x.shape)}, w {tuple(w.shape)} ({int8_kernel.int8_conv.last_path}): "
+        log(f"  {case[0]}: x {tuple(x.shape)}, w {tuple(w.shape)} ({plan_text(int8_kernel.int8_conv.last_plan)}): "
             "bit-equal in float32 and bf16, twice")
     del calls, head_calls
     bound = max(totals["bytes_ms"], totals["ops_ms"])
     log(f"  K7 a request of 2 images: {totals['ms']:.3f} ms over 65 launches ({distinct} shapes), bound "
         f"{bound:.4f} ms ({'operations' if totals['ops_ms'] >= totals['bytes_ms'] else 'bytes'}: ops "
         f"{totals['ops_ms']:.4f}, bytes {totals['bytes_ms']:.4f}), plain {totals['plain_ms']:.2f} ms, the bf16 cuDNN "
-        f"convolutions of the same shapes {totals['cudnn_ms']:.3f} ms ({card})")
+        f"convolutions of the same shapes {totals['cudnn_ms']:.3f} ms; its 1x1 stride-1 sites "
+        f"{totals['pointwise_ms']:.3f} ms against torch._int_mm's {totals['pointwise_int_mm_ms']:.3f} ms; the heads' "
+        f"FCs {head_totals['fc_ms']:.4f} ms against {head_totals['int_mm_ms']:.4f} ms ({card})")
 
     torch.cuda.synchronize()
     zero_launch_counts()
@@ -2276,6 +2340,8 @@ def run_int8(device, card, requests, flush, root):
         library="bf16 cuDNN convolutions (F.conv2d) of the same shapes: no PyTorch call computes an int8 "
                 "convolution on CUDA",
         fc_ms=head_totals["fc_ms"], fc_int_mm_ms=head_totals["int_mm_ms"], heads_ms=head_totals["ms"],
+        pointwise_ms=totals["pointwise_ms"], pointwise_int_mm_ms=totals["pointwise_int_mm_ms"],
+        tensor_core_sass=sass_imma,
         heads_library_ms=head_totals["cudnn_ms"],
         forward_ms={f"{name}_batch{b}": v for (name, b), v in times.items()},
         top5_match=float(np.mean(shares)), heads_launches=heads_launches, zoo_launches=zoo_counts,

@@ -1,6 +1,6 @@
 """Where the device time of one served batch goes, on a CUDA card.
 
-    python -m maskrcnn_tf2_tpu_torch.profile_serving [--batch 2] [--reps 10] [--backbone KEY]
+    python -m maskrcnn_tf2_tpu_torch.profile_serving [--batch 2] [--reps 10] [--backbone KEY] [--int8]
     python -m maskrcnn_tf2_tpu_torch.profile_serving --stream 16 [--depth 2] [--min-confidence 0.7]
 
 Builds the flagship predictor (ResNet-50-FPN, 512x512, 81 classes, bf16,
@@ -13,8 +13,15 @@ and reports, with the card's name and power limit:
 - one whole ``Predictor.detect`` request on the host clock, split into
   preprocessing, forward + fetch, and unmold;
 - a ``torch.profiler`` table of device time by kernel for one forward, and
-  the share of the hand-written kernels (NMS: mask and scan; ROIAlign) and
-  of idle device time.
+  the share of the hand-written kernels (NMS: mask and scan; ROIAlign; the
+  int8 convolution) and of idle device time.
+
+``--int8`` calibrates the predictor on the timed batch
+(``export/quantize.py::quantize_for_inference``) and profiles the int8
+forward instead; its device time is also split into the int8 convolution's
+kernels, the quantize passes (every kernel launched inside
+``models/quant.py::quantize_input``, at a site or at a ResNet block's
+output, marked by a profiler range) and the rest.
 
 ``--stream N`` instead serves N images of 480x640 through ``detect`` over
 chunks of ``--batch`` and through ``detect_stream`` (``--depth`` batches in
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import os
 import subprocess
 import time
@@ -36,15 +44,40 @@ import warnings
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
+from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
+from maskrcnn_tf2_tpu_torch.models import quant
+from maskrcnn_tf2_tpu_torch.models.backbones import resnet
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
-KERNEL_NAMES = ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel")
+KERNEL_NAMES = ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel", "int8_conv_mma_kernel",
+                "int8_conv_grouped_kernel")
+QUANTIZE_RANGE = "int8_quantize_input"
+
+
+@contextlib.contextmanager
+def marked_quantize_passes():
+    """``models/quant.py::quantize_input`` inside a profiler range, for the
+    duration: at the sites and where a ResNet block quantizes its output for
+    the next block (``models/backbones/resnet.py``)."""
+    plain = quant.quantize_input
+
+    def marked(*args, **kwargs):
+        with record_function(QUANTIZE_RANGE):
+            return plain(*args, **kwargs)
+
+    for module in (quant, resnet):
+        module.quantize_input = marked
+    try:
+        yield
+    finally:
+        for module in (quant, resnet):
+            module.quantize_input = plain
 
 
 def _image(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:
@@ -62,6 +95,7 @@ def main() -> None:
     ap.add_argument("--stream", type=int, default=0, metavar="N", help="compare detect_stream on N images")
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--min-confidence", type=float, default=0.0)
+    ap.add_argument("--int8", action="store_true", help="calibrate on the timed batch and profile in int8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
@@ -70,9 +104,9 @@ def main() -> None:
     cfg = MaskRCNNConfig(image_shape=(512, 512, 3), num_classes=81, backbone=args.backbone,
                          compute_dtype="bfloat16", detection_min_confidence=args.min_confidence)
     model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(args.seed))
-    pred = Predictor(cfg, model.state_dict(), device="cuda")
     rs = np.random.RandomState(args.seed)
     if args.stream:
+        pred = Predictor(cfg, model.state_dict(), device="cuda")
         return profile_stream(pred, [_image(rs, 480, 640) for _ in range(args.stream)], args, card)
     images = [_image(rs, 480, 640) for _ in range(args.batch)]
 
@@ -82,6 +116,13 @@ def main() -> None:
     m = torch.from_numpy(np.stack(metas)).cuda()
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
+    if args.int8:
+        t0 = time.perf_counter()
+        cfg, state = quantize_for_inference(cfg, model.state_dict(), [(x.cpu(), m.cpu())], device="cuda")
+        calib_s = time.perf_counter() - t0
+        pred = Predictor(cfg, state, device="cuda")
+    else:
+        pred = Predictor(cfg, model.state_dict(), device="cuda")
     for _ in range(3):
         pred.model(x, m)
     torch.cuda.synchronize()
@@ -103,18 +144,21 @@ def main() -> None:
                for i, im in enumerate(images)]
     t_unmold = time.perf_counter() - t0
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with marked_quantize_passes(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pred.model(x, m)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side rows only (kernels, copies): operator rows repeat their time
-    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    events = prof.key_averages()
+    # device-side rows only (kernels, copies): operator rows repeat their time, and the
+    # range's own device-side row spans its kernels and the gaps between them
+    device_us = {e.key: e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.key != QUANTIZE_RANGE}
     busy_us = sum(device_us.values())
 
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"{args.backbone}, batch {args.batch} x 480x640 -> 512x512, bf16")
+    print(f"{args.backbone}, batch {args.batch} x 480x640 -> 512x512, "
+          + (f"int8 (calibrated on this batch in {calib_s:.2f} s), bf16 elsewhere" if args.int8 else "bf16"))
     print(f"device forward: {fwd_ms:.3f} ms per batch (CUDA events, mean of {args.reps})")
     print(f"one request on the host clock: preprocess {t_pre * 1e3:.1f} ms, forward + fetch "
           f"{t_fwd * 1e3:.1f} ms, unmold {t_unmold * 1e3:.1f} ms "
@@ -124,6 +168,16 @@ def main() -> None:
     for name in KERNEL_NAMES:
         us = sum(v for k, v in device_us.items() if name in k)
         print(f"  {name}: {us / 1e3:.3f} ms ({us / busy_us:.3%} of device time)")
+    if args.int8:
+        k7_us = sum(v for k, v in device_us.items() if "int8_conv_" in k)
+        # the kernels launched inside the range, through its host-side events
+        ranges = [e for e in prof.events() if e.name == QUANTIZE_RANGE and e.device_type == DeviceType.CPU]
+        quant_us = sum(e.device_time_total for e in ranges)
+        calls = len(ranges)
+        rest = busy_us - k7_us - quant_us
+        print(f"int8 device time: K7 {k7_us / 1e3:.3f} ms ({k7_us / busy_us:.1%}), input-quantize passes "
+              f"{quant_us / 1e3:.3f} ms in {calls} calls ({quant_us / busy_us:.1%}), the rest "
+              f"{rest / 1e3:.3f} ms ({rest / busy_us:.1%}) of {busy_us / 1e3:.3f} ms busy")
     print("device time by kernel (one forward):")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3:9.3f} ms  {us / busy_us:7.2%}  {key[:100]}")

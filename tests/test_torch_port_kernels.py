@@ -344,6 +344,17 @@ INT8_CASES = {
     "c36_3x3_s2_odd": (2, 13, 11, 36, 72, 3, 2, 1, True, 1.0),
     "fc_k12544": (300, 1, 1, 12544, 1024, 1, 1, 1, True, 1.0),
     "amax_0": (1, 8, 8, 64, 32, 3, 1, 1, True, 0.0),
+    # the tensor-core path's edges: M, N and K tails, each copy width, a split of K
+    "tails_m_n_k_c48": (3, 7, 9, 48, 200, 3, 1, 1, True, 1.0),
+    "c4_3x3": (2, 9, 11, 4, 24, 3, 1, 1, True, 1.0),
+    "c40_3x3_s2": (2, 13, 12, 40, 72, 3, 2, 1, False, 1.0),
+    "split_k_3x3_c256": (2, 8, 8, 256, 256, 3, 1, 1, True, 1.0),
+    "split_k_tails_c112": (3, 7, 9, 112, 200, 3, 1, 1, True, 1.0),
+    # the grouped kernel's: ResNeXt's groups of 8, 16 and 32, depthwise 5x5/2
+    "groups_of_8_s2": (2, 11, 13, 256, 256, 3, 2, 32, False, 1.0),
+    "groups_of_16": (1, 9, 10, 512, 512, 3, 1, 32, False, 1.0),
+    "groups_of_32_s2": (1, 9, 8, 1024, 1024, 3, 2, 32, True, 1.0),
+    "depthwise_5x5_s2": (2, 17, 19, 120, 120, 5, 2, 120, False, 1.0),
 }
 
 
@@ -384,7 +395,7 @@ def int8_conv_loop(x, w, stride, groups):
 
 
 @pytest.mark.parametrize("case", ["3x3_s2_odd_groups_of_4", "depthwise_3x3_s2", "c3_7x7_s2", "c36_3x3_s2_odd",
-                                  "amax_0"])
+                                  "amax_0", "groups_of_8_s2", "depthwise_5x5_s2"])
 def test_int8_conv_plain_matches_a_loop(case):
     x, w, sx, sw, bias, stride, groups = int8_case(case)
     acc = port_int8_kernel.int8_conv_accumulate_plain(x, w, stride, groups)
@@ -420,6 +431,139 @@ def test_int8_conv_refuses_bad_inputs():
     with pytest.raises(ValueError):
         meta = [t.to("meta") for t in (x, w, sx, sw, bias)]
         port_int8_kernel.int8_conv(*meta)
+
+
+def int8_site_shapes(backbone, **heads):
+    """``(name, c, o, kh, kw, stride, groups)`` of every int8 site of a
+    full-width int8 detector (the flagship's widths: 512 px, 81 classes),
+    read from the modules built on the meta device, without a forward."""
+    from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+    from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tf2_tpu_torch.models.quant import Int8Conv2d, Int8Linear
+
+    cfg = MaskRCNNConfig(image_shape=(512, 512, 3), num_classes=81, backbone=backbone, quant_mode="int8", **heads)
+    with torch.device("meta"):
+        model = MaskRCNN(cfg, device="meta")
+    shapes = []
+    for name, m in model.named_modules():
+        if isinstance(m, Int8Conv2d):
+            shapes.append((name, m.in_channels, m.out_channels, *m.kernel_size, m.stride[0], m.groups))
+        elif isinstance(m, Int8Linear):
+            shapes.append((name, m.in_features, m.out_features, 1, 1, 1, 1))
+    return shapes
+
+
+# sites (modules): the RPN conv is one site called on 5 levels, so 61 sites
+# launch 65 times a request; MobileNet V2's 17 depthwise sites are int8 under DW=1
+@pytest.mark.parametrize("backbone,heads,count", [
+    ("resnet50", {}, 61), ("resnet50", {"quant_classifier": True, "quant_mask_head": True}, 67),
+    ("resnext50", {}, 61), ("mobilenetv2", {}, 59)])
+def test_int8_plan_puts_every_group_1_site_on_the_tensor_cores(backbone, heads, count):
+    """Every site of one group, at any map size, on the tensor-core path with
+    16-byte copies where its channels allow; the grouped sites on the grouped
+    kernel (ResNeXt's dp4a words, MobileNet V2's depthwise under DW=1)."""
+    shapes = int8_site_shapes(backbone, **heads)
+    assert len(shapes) == count
+    for name, c, o, kh, kw, stride, groups in shapes:
+        for n, hw in ((2, 128), (2, 16), (2000, 1)):
+            p = port_int8_kernel.plan(n, hw, hw, c, o, kh, kw, stride, groups)
+            if groups == 1:
+                assert p.kernel == "tensor-core", name
+                assert p.vec == (16 if c % 16 == 0 else 8 if c % 8 == 0 else 4 if c % 4 == 0 else 1), name
+            elif c // groups == 1:
+                assert p.kernel == "grouped depthwise" and backbone == "mobilenetv2", name
+            else:
+                assert p.kernel == "grouped dp4a words" and backbone == "resnext50", name
+
+
+# (n, h, w, c, o, k, stride): flagship shapes of one request of 2 images and
+# the classifier's FCs over 2 x 1000 ROIs
+SPLIT_SHAPES = [
+    (2, 128, 128, 256, 256, 3, 1),  # an FPN output conv on P2: 256 tiles, no split
+    (2, 32, 32, 1024, 256, 1, 1),  # C4's 1x1 reduce
+    (2, 16, 16, 512, 512, 3, 1),  # C5's 3x3
+    (2, 16, 16, 2048, 256, 1, 1),  # the FPN lateral on C5
+    (2, 8, 8, 256, 512, 3, 1),  # the RPN conv on P6
+    (2000, 1, 1, 12544, 1024, 1, 1),  # FC1
+    (2000, 1, 1, 1024, 1024, 1, 1),  # FC2
+    (2, 7, 9, 3, 64, 7, 2),  # a c = 3 stem
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("sms", [port_int8_kernel.SMS, 8, 100000])
+def test_int8_split_covers_each_k_range_once(shape, sms):
+    n, h, w, c, o, k, stride = shape
+    p = port_int8_kernel.plan(n, h, w, c, o, k, k, stride, 1, sms=sms)
+    ranges = p.k_ranges()
+    assert p.k_steps * port_int8_kernel.STEP_K >= k * k * c > (p.k_steps - 1) * port_int8_kernel.STEP_K
+    assert len(ranges) == p.split == p.grid[2] and 1 <= p.split <= port_int8_kernel.MAX_SPLIT
+    assert ranges[0][0] == 0 and ranges[-1][1] == p.k_steps * port_int8_kernel.STEP_K
+    assert all(a < b for a, b in ranges) and all(ranges[i][1] == ranges[i + 1][0] for i in range(len(ranges) - 1))
+    tiles = p.grid[0] * p.grid[1]
+    if tiles >= sms:
+        assert p.split == 1
+    assert p.workspace_elements() == (0 if p.split == 1 else p.split * tiles * p.tile * p.tile)
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_int8_plan_fills_a_wave(shape):
+    """The 128-pixel tile where there are more than 64 channels and half a
+    wave of such tiles, else the 64-pixel one; K split where the grid falls
+    short of a wave and K allows two ranges of the tile's least length."""
+    n, h, w, c, o, k, stride = shape
+    sms = port_int8_kernel.SMS
+    p = port_int8_kernel.plan(n, h, w, c, o, k, k, stride)
+    m = n * -(-h // stride) * -(-w // stride)
+    assert p.tile == (128 if o > 64 and -(-m // 128) * -(-o // 128) >= sms // 2 else 64)
+    assert p.grid[:2] == (-(-m // p.tile), -(-o // p.tile))
+    short = p.grid[0] * p.grid[1] < sms
+    assert (p.split > 1) == (short and p.k_steps >= 2 * port_int8_kernel.MIN_STEPS_PER_SPLIT[p.tile])
+
+
+def test_int8_plan_of_the_flagship_sites():
+    """The choices measured best on the card at the flagship's sites."""
+    plan = port_int8_kernel.plan
+    assert plan(2, 128, 128, 256, 512, 3, 3).tile == 128 and plan(2, 128, 128, 256, 512, 3, 3).split == 1
+    assert plan(2000, 1, 1, 12544, 1024, 1, 1)[2:6] == ((16, 8, 2), 128, 196, 2)  # FC1: half a wave, split
+    assert plan(2000, 1, 1, 1024, 1024, 1, 1).split == 1  # FC2: K too short to split
+    assert plan(2, 128, 128, 64, 64, 3, 3).tile == 64  # 64 channels
+    assert plan(2, 16, 16, 512, 512, 3, 3)[2:6] == ((8, 8, 4), 64, 72, 4)  # C5's 3x3
+
+
+@pytest.mark.parametrize("case", ["split_k_3x3_c256", "split_k_tails_c112", "fc_k12544"])
+def test_int8_split_partials_sum_in_any_order(case):
+    """The int32 partial sums over the plan's K ranges (the weights outside a
+    range zeroed), added in any order, equal the whole sum."""
+    x, w, _, _, _, stride, groups = int8_case(case)
+    n, h, wd, c = x.shape
+    o, kh, kw, _ = w.shape
+    p = port_int8_kernel.plan(n, h, wd, c, o, kh, kw, stride, groups, sms=100000)
+    assert p.split > 1
+    flat = w.reshape(o, -1)
+    partials = []
+    for k0, k1 in p.k_ranges():
+        part = torch.zeros_like(flat)
+        part[:, k0:k1] = flat[:, k0:k1]
+        partials.append(port_int8_kernel.int8_conv_accumulate_plain(x, part.reshape(w.shape), stride, groups))
+    whole = port_int8_kernel.int8_conv_accumulate_plain(x, w, stride, groups)
+    rs = np.random.RandomState(5)
+    for order in [range(p.split), reversed(range(p.split))] + [rs.permutation(p.split) for _ in range(3)]:
+        total = torch.zeros_like(whole)
+        for i in order:
+            total += partials[i]
+        assert torch.equal(total, whole)
+
+
+def test_int8_grouped_plan():
+    plan = port_int8_kernel.plan
+    assert plan(2, 64, 64, 128, 128, 3, 3, 1, 32) == ("grouped dp4a words", 16, (64, 2, 2), 0, 0, 1, 0)
+    assert plan(2, 63, 65, 240, 240, 5, 5, 2, 240).kernel == "grouped depthwise"
+    assert plan(2, 63, 65, 240, 240, 5, 5, 2, 240).vec == 16
+    assert plan(2, 17, 19, 120, 120, 5, 5, 2, 120).vec == 4  # the last slice ends at 120
+    assert plan(1, 8, 8, 6, 6, 3, 3, 1, 3).kernel == "grouped bytes"  # groups of 2
+    assert plan(1, 8, 8, 64, 64, 3, 3, 1, 64, x_align=4).vec == 4
+    assert plan(1, 8, 8, 64, 64, 3, 3, 1, 1, w_align=8).vec == 8
 
 
 # ---------------------------------------------------------------------------
@@ -593,11 +737,30 @@ def test_int8_conv_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case,path", [("3x3_s1_c64", "tiled dp4a words"), ("c3_7x7_s2", "tiled bytes"),
-                                       ("3x3_s2_odd_groups_of_4", "direct dp4a words"),
-                                       ("depthwise_3x3_s2", "direct bytes")])
-def test_int8_conv_kernel_path(cuda, case, path):
-    """The launcher reports the kernel and the loads it took."""
+@pytest.mark.parametrize("case,path,vec", [("3x3_s1_c64", "tensor-core", 16), ("c3_7x7_s2", "tensor-core", 1),
+                                           ("c4_3x3", "tensor-core", 4), ("c40_3x3_s2", "tensor-core", 8),
+                                           ("3x3_s2_odd_groups_of_4", "grouped dp4a words", 16),
+                                           ("depthwise_3x3_s2", "grouped depthwise", 16)])
+def test_int8_conv_kernel_path(cuda, case, path, vec):
+    """The launcher reports the kernel and the copy width it took."""
     x, w, sx, sw, bias, stride, groups = int8_case(case, cuda)
     port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups)
     assert port_int8_kernel.int8_conv.last_path == path
+    assert port_int8_kernel.int8_conv.last_plan.vec == vec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sms", [1, 100000])
+@pytest.mark.parametrize("case", ["split_k_3x3_c256", "split_k_tails_c112", "fc_k12544"])
+def test_int8_conv_kernel_split_on_and_off(cuda, monkeypatch, case, sms):
+    """The same bits with K whole (one SM's wave is never short) and split as
+    far as the plan goes; the tile counters are zero again after each launch."""
+    monkeypatch.setattr(port_int8_kernel, "SMS", sms)
+    x, w, sx, sw, bias, stride, groups = int8_case(case, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = port_int8_kernel.int8_conv(x, w, sx, sw, bias, stride, groups, dtype)
+        want = port_int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, dtype)
+        torch.cuda.synchronize()
+        assert (port_int8_kernel.int8_conv.last_plan.split > 1) == (sms > 1)
+        assert torch.equal(got, want)
+    assert all(int(buf.abs().sum()) == 0 for buf in port_int8_kernel._counters.values())
