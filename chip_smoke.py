@@ -187,7 +187,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                site call bit-equal on the CPU's inputs, end to end held at
                floors that a wiring fault falls below; (e) ``cli.detect
                --int8`` on 3 JPEGs.
-18. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+18. engine  -- serving engines and program export (``export/engine.py``,
+               ``export/serialize.py``): (a) a tiny float32 model's engine
+               and program from one seeded state dict, against eager on the
+               card (TF32 off) within 1e-4 with equal class ids, 2/2 launches
+               in the engine's call; (b) the flagship's bf16 engine at batch
+               2: build seconds and size, then, in a fresh process, the load
+               seconds and the first call, with ``_build/`` and a fresh
+               Inductor cache untouched (nothing built, nothing compiled),
+               and the 4 requests: NMS and ROIAlign launched exactly 8 times
+               each inside the engine; against ``Predictor._forward``, the
+               share of eager's detections the engine has too (same class,
+               IoU >= 0.9), their mask pixels that agree at 0.5, held at
+               ``ENGINE_*_FLOOR``, and class ids equal over all slots, held
+               at phase 17(d)'s floor; (c) the same for an int8 engine of
+               phase 17's calibrated state dict, K7 exactly 260 times (and in
+               (a) a tiny int8 engine against the live int8 model); the
+               engine and eager forwards at batch 2 by CUDA events, bf16 and
+               int8;
+               (d) a flipped byte, a trailing byte, a foreign device name,
+               torch version and kernel digest, each refused with its error.
+19. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -195,9 +215,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -209,6 +231,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._inductor.async_compile import shutdown_compile_workers
 
 from maskrcnn_tf2_tpu_torch.cli import coco_train as cli_train
 from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
@@ -219,8 +242,11 @@ from maskrcnn_tf2_tpu_torch.data import image_io
 from maskrcnn_tf2_tpu_torch.data.coco import COCO_CLASS_NAMES, CocoDataset
 from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
 from maskrcnn_tf2_tpu_torch.eval.coco_eval import evaluate_dataset
+from maskrcnn_tf2_tpu_torch.export import engine as engine_mod
+from maskrcnn_tf2_tpu_torch.export.engine import build_engine, load_engine
 from maskrcnn_tf2_tpu_torch.export.inference import process_input
 from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
+from maskrcnn_tf2_tpu_torch.export.serialize import export_program, load_program
 from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.kernels import int8_conv as int8_kernel
 from maskrcnn_tf2_tpu_torch.kernels import nms as nms_kernel
@@ -229,7 +255,7 @@ from maskrcnn_tf2_tpu_torch.models.backbones.factory import backbone_names, get_
 from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_backbone
 from maskrcnn_tf2_tpu_torch.models.backbones.resnet import ResNet
 from maskrcnn_tf2_tpu_torch.models import layers, quant
-from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
+from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
@@ -541,13 +567,17 @@ def check_results(results, images, cfg):
             raise AssertionError("box outside the image")
 
 
+def tiny_config() -> MaskRCNNConfig:
+    return MaskRCNNConfig(image_shape=(128, 128, 3), rpn_anchor_scales=(8, 16, 32, 64, 128),
+                          backbone="resnet18", top_down_pyramid_size=64, fpn_cls_fc_layers_size=64,
+                          mask_conv_channels=64, pre_nms_limit=256, post_nms_rois_inference=64,
+                          num_classes=3, compute_dtype="float32", detection_min_confidence=0.0)
+
+
 def tiny_cross_check(device):
     """A small float32 model with the same seeded weights on the card and on
     the CPU: the RPN scores agree, and so do the valid proposal counts."""
-    cfg = MaskRCNNConfig(image_shape=(128, 128, 3), rpn_anchor_scales=(8, 16, 32, 64, 128),
-                         backbone="resnet18", top_down_pyramid_size=64, fpn_cls_fc_layers_size=64,
-                         mask_conv_channels=64, pre_nms_limit=256, post_nms_rois_inference=64,
-                         num_classes=3, compute_dtype="float32", detection_min_confidence=0.0)
+    cfg = tiny_config()
     rs = np.random.RandomState(SEED + 2)
     img = torch.from_numpy(np.stack([smooth_image(rs, 128, 128) for _ in range(2)]))
     meta = torch.zeros((2, cfg.meta_size))
@@ -2077,7 +2107,8 @@ def y_item(dtype):
 
 
 def forward_ms(model, images, metas, reps=10):
-    """Median ms of the device forward by CUDA events, after 3 warm-up calls."""
+    """Median ms of the device forward ``model(images, metas)`` (a model or an
+    engine's ``run``) by CUDA events, after 3 warm-up calls."""
     with torch.no_grad():
         for _ in range(3):
             model(images, metas)
@@ -2189,7 +2220,8 @@ def tensor_core_instructions(name="int8_conv", kernel="int8_conv_mma_kernel"):
 
 
 def run_int8(device, card, requests, flush, root):
-    """Phase 17 (see the module's docstring). Returns K7's kernels-line fields."""
+    """Phase 17 (see the module's docstring). Returns the calibrated ``(int8
+    config, state_dict)`` and K7's kernels-line fields."""
     start_phase = time.perf_counter()
     sass = tensor_core_instructions()
     log(f"== int8 serving: cuobjdump --dump-sass of csrc/int8_conv.cu: int8 tensor-core instructions in each "
@@ -2331,7 +2363,7 @@ def run_int8(device, card, requests, flush, root):
     log(f"  (e) cli.detect --int8 on 3 JPEGs (random weights, no checkpoint; detection_min_confidence 0.7): "
         f"{[len(r['class_ids']) for r in results]} detections, finite, JSON written, K7 launched {served} times")
     log(f"== int8 phase done in {time.perf_counter() - start_phase:.1f} s")
-    return dict(
+    return (qcfg, qstate), dict(
         name="int8_conv", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/int8_conv.cu",
         replaces="maskrcnn_tf2_tpu/models/quant.py:76 (XLA's s8 conv_general_dilated; no Pallas counterpart)",
         launches=launches["int8_conv"], max_abs_err=max(errs), relaunch_max_abs_diff=max(gaps), ms=totals["ms"],
@@ -2347,6 +2379,284 @@ def run_int8(device, card, requests, flush, root):
         top5_match=float(np.mean(shares)), heads_launches=heads_launches, zoo_launches=zoo_counts,
         zoo_ms=zoo_ms,
     )
+
+
+# ---------------------------------------------------------------------------
+# serving engines and program export
+# ---------------------------------------------------------------------------
+
+# Floors of a flagship engine's agreement with eager serving of the same
+# weights on the same batches. The engine keeps eager's roundings
+# (``export/engine.py::_eager_numerics``), but its kernels sum in other
+# orders, and with seeded random weights near-tied class scores and ranks
+# can flip; a wiring fault (a dropped constant, a wrong stride) falls far
+# below. Readings on an H100, bf16 and int8 alike: class ids equal on every
+# slot of every request, mask pixels 1.000
+ENGINE_MATCH_FLOOR = 0.7
+ENGINE_MASK_FLOOR = 0.95
+
+SERVE_ENGINE = """
+import json, os, sys, time
+import numpy as np, torch
+from maskrcnn_tf2_tpu_torch.export.engine import load_engine
+from maskrcnn_tf2_tpu_torch.kernels import _build, int8_conv, nms, roi_align
+
+def listing():
+    return sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir())
+
+path, batches, out = sys.argv[1:4]
+built = listing()
+t = time.perf_counter()
+engine = load_engine(path)
+load_s = time.perf_counter() - t
+data = np.load(batches)
+counters = (nms.greedy_nms, roi_align.roi_align, int8_conv.int8_conv)
+for fn in counters:
+    fn.launches = 0
+results, first_s = {}, None
+for i in range(len(data.files) // 2):
+    t = time.perf_counter()
+    det, masks = engine(data[f"images{i}"], data[f"metas{i}"])
+    first_s = first_s if first_s is not None else time.perf_counter() - t
+    results[f"det{i}"], results[f"masks{i}"] = det, masks
+launches = [fn.launches for fn in counters]
+np.savez(out, **results)
+cache = os.environ["TORCHINDUCTOR_CACHE_DIR"]
+print(json.dumps({"load_s": load_s, "first_call_s": first_s, "launches": launches,
+                  "build_dir_untouched": listing() == built,
+                  "inductor_cache": sorted(os.listdir(cache)) if os.path.isdir(cache) else []}))
+"""
+
+
+def rewrite_engine(path, out, edit=None, trailing=b""):
+    """``path`` with its metadata edited by ``edit`` and ``trailing`` bytes
+    after the sections, under a header whose sha256 matches."""
+    metadata, weights, package = engine_mod.read_engine(path)
+    if edit is not None:
+        edit(metadata)
+    body = io.BytesIO()
+    for section in (json.dumps(metadata).encode(), weights, package):
+        engine_mod._write_section(body, section)
+    blob = body.getvalue() + trailing
+    with open(out, "wb") as f:
+        f.write(engine_mod.MAGIC + b" " + hashlib.sha256(blob).hexdigest().encode() + b"\n" + blob)
+    return out
+
+
+def engine_gates(path, device, root):
+    """18(d): each altered copy of the engine at ``path`` refused, with its error."""
+    raw = bytearray(open(path, "rb").read())
+    raw[raw.index(b"\n") + 100] ^= 0xFF
+    flipped = os.path.join(root, "flipped.engine")
+    open(flipped, "wb").write(bytes(raw))
+
+    def edit(key, value):
+        return lambda m: m.update({key: value})
+
+    def foreign_kernel(m):
+        m["kernels"]["roi_align"] = "0" * 64
+
+    cases = [("a flipped byte", flipped, ValueError, "corrupt"),
+             ("a trailing byte", rewrite_engine(path, os.path.join(root, "trailing.engine"), trailing=b"\0"),
+              ValueError, "trailing bytes"),
+             ("a foreign device name", rewrite_engine(path, os.path.join(root, "device.engine"),
+                                                      edit("device_name", "NVIDIA A100-SXM4-80GB")),
+              RuntimeError, "device .*rebuild"),
+             ("a foreign torch version", rewrite_engine(path, os.path.join(root, "torch.engine"),
+                                                        edit("torch_version", "2.0.0")),
+              RuntimeError, "torch .*rebuild"),
+             ("a foreign kernel digest", rewrite_engine(path, os.path.join(root, "kernel.engine"), foreign_kernel),
+              RuntimeError, "csrc/roi_align.cu.*rebuild")]
+    for what, bad, error, match in cases:
+        try:
+            load_engine(bad, device)
+        except error as e:
+            if not re.search(match, str(e)):
+                raise AssertionError(f"an engine with {what} raised {e!r}, not /{match}/") from e
+            log(f"  (d) {what}: {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"an engine with {what} loaded")
+
+
+def engine_tiny(device, root):
+    """18(a): the tiny float32 model's engine and program against eager on
+    the card (TF32 off), within 1e-4 with equal class ids. Returns the
+    engine's path."""
+    cfg = tiny_config()
+    state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+    rs = np.random.RandomState(SEED + 20)
+    img = torch.from_numpy(np.stack([smooth_image(rs, 128, 128) for _ in range(2)])).to(device)
+    meta = torch.zeros((2, cfg.meta_size), device=device)
+    meta[:, 7:11] = torch.tensor([0.0, 0.0, 128.0, 128.0])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        t = time.perf_counter()
+        path = build_engine(cfg, state, os.path.join(root, "tiny.engine"), batch_size=2, device=device)
+        build_s = time.perf_counter() - t
+        program_path = export_program(cfg, state, os.path.join(root, "tiny.pt2"), batch_size=2, device=device)
+        eager = MaskRCNN(cfg, device=device)
+        eager.load_state_dict(state)
+        eager.cast_for_serving_()
+        engine = load_engine(path, device)
+        program = load_program(program_path, device)
+        with torch.no_grad():
+            ref = eager(img, meta)
+            before = launch_counts()[:2]
+            det, masks = engine.run(img, meta)
+            rose = tuple(a - b for a, b in zip(launch_counts()[:2], before))
+            pdet, pmasks = program(img.float(), meta)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {"engine detections": (det, ref["detections"]), "engine masks": (masks, gather_class_masks(ref)),
+            "program detections": (pdet, ref["detections"]), "program masks": (pmasks, ref["mrcnn_masks"])}
+    errs = {k: float((a - b).abs().max()) for k, (a, b) in errs.items()}
+    same = [bool(torch.equal(d[..., 4], ref["detections"][..., 4])) for d in (det, pdet)]
+    valid = int((ref["detections"][..., 4] > 0).sum())
+    log(f"  (a) tiny float32 model (ResNet-18, 128x128, batch 2): engine built in {build_s:.1f} s "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB), program {os.path.getsize(program_path) / 2**20:.1f} MiB; "
+        f"against eager on the card (TF32 off): {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; class ids "
+        f"equal (engine, program): {same} over {valid} valid detections; launches in the engine's call (NMS, "
+        f"ROIAlign) {rose}")
+    if not (max(errs.values()) <= 1e-4 and all(same) and valid > 0 and rose == (2, 2)):
+        raise AssertionError(f"tiny engine/program vs eager: {errs}, classes equal {same}, valid {valid}, "
+                             f"launches {rose} (want <= 1e-4, equal, > 0, (2, 2))")
+    engine_tiny_int8(cfg, state, img, meta, device, root)
+    return path
+
+
+def engine_tiny_int8(cfg, state, img, meta, device, root):
+    """18(a), int8: the tiny model calibrated on its batch, its engine against
+    the live int8 model on the card (TF32 off). Two float32 implementations
+    on the card round a few values another way, a quantization step flips and
+    the flip spreads (as between card and CPU in phase 17(d)), so the engine
+    is held at phase 17(d)'s class floor, with K7 launched as often as eager
+    launches it; the share of eager's detections matched and the largest
+    difference are printed."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        qcfg, qstate = quantize_for_inference(cfg, state, [(img, meta)], device=device)
+        path = build_engine(qcfg, qstate, os.path.join(root, "tiny_int8.engine"), batch_size=2, device=device)
+        live = MaskRCNN(qcfg, device=device)
+        live.load_state_dict(qstate)
+        live.cast_for_serving_()
+        engine = load_engine(path, device)
+        with torch.no_grad():
+            before = int8_kernel.int8_conv.launches
+            out = live(img, meta)
+            eager_k7 = int8_kernel.int8_conv.launches - before
+            det, masks = engine(img, meta)
+            engine_k7 = int8_kernel.int8_conv.launches - before - eager_k7
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ref = out["detections"].cpu().numpy()
+    stats = agreement(det, masks, ref, gather_class_masks(out).cpu().numpy())
+    log(f"  (a) tiny int8 engine against the live int8 model on the card: class ids equal over all slots "
+        f"{stats['all_slot_classes']:.3f} (held >= {CROSS_MIN_CLASSES}), eager's {stats['valid']} detections "
+        f"matched {stats['matched']:.3f}, max |diff| {float(np.abs(det - ref).max()):.3g}; K7 launches engine "
+        f"{engine_k7}, eager {eager_k7}")
+    if not (stats["all_slot_classes"] >= CROSS_MIN_CLASSES and engine_k7 == eager_k7 > 0):
+        raise AssertionError(f"tiny int8 engine vs live: classes equal {stats['all_slot_classes']:.3f} (want >= "
+                             f"{CROSS_MIN_CLASSES}), K7 launches {engine_k7} against eager's {eager_k7}")
+
+
+def agreement(det, masks, ref_det, ref_masks):
+    """Of eager's valid detections (``ref_*``), the share the engine has too
+    (a detection of the same class at IoU >= 0.9, or with every corner within
+    1e-3: a box clipped to no area overlaps nothing, not even itself), the
+    mask pixels of those pairs that agree at 0.5, and the share of equal
+    class ids over all slots (phase 17(d)'s measure, which a rank flip
+    moves)."""
+    matched, pixels = 0, []
+    for b in range(ref_det.shape[0]):
+        got = det[b][det[b][:, 4] > 0]
+        got_masks = masks[b][det[b][:, 4] > 0]
+        for ref, ref_mask in zip(ref_det[b][ref_det[b][:, 4] > 0], ref_masks[b][ref_det[b][:, 4] > 0]):
+            iou = box_iou(ref[None, :4].astype(np.float64), got[:, :4].astype(np.float64))[0]
+            iou = np.where(np.abs(got[:, :4] - ref[:4]).max(axis=1) <= 1e-3, 1.0, iou)
+            iou = np.where(got[:, 4] == ref[4], iou, 0.0)
+            if iou.size and iou.max() >= 0.9:
+                matched += 1
+                pixels.append(((got_masks[int(iou.argmax())] > 0.5) == (ref_mask > 0.5)).mean())
+    valid = int((ref_det[..., 4] > 0).sum())
+    return dict(valid=valid, matched=matched / max(valid, 1), mask_pixels=float(np.mean(pixels)) if pixels else 0.0,
+                all_slot_classes=float((det[..., 4] == ref_det[..., 4]).mean()))
+
+
+def engine_flagship(name, cfg, state, predictor, batches, device, card, root):
+    """18(b) and (c): build the flagship's engine at batch 2, serve the 4
+    requests from a fresh process (load and first call timed; no build and
+    no compile), hold the launches and the agreement with ``predictor``'s
+    eager ``_forward``, and time both forwards. Returns the phase's numbers."""
+    t = time.perf_counter()
+    path = build_engine(cfg, state, os.path.join(root, f"{name}.engine"), batch_size=2, device=device)
+    build_s = time.perf_counter() - t
+    shutdown_compile_workers()  # the build's Triton compile processes
+    data = os.path.join(root, f"{name}_batches.npz")
+    np.savez(data, **{f"{k}{i}": v.numpy() for i, (m, me) in enumerate(batches)
+                      for k, v in (("images", m), ("metas", me))})
+    out = os.path.join(root, f"{name}_out.npz")
+    env = dict(os.environ, TORCHINDUCTOR_CACHE_DIR=os.path.join(root, f"{name}_inductor_cache"),
+               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.abspath(__file__)),
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", SERVE_ENGINE, path, data, out], capture_output=True, text=True,
+                          env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"serving the {name} engine in a fresh process failed:\n{proc.stderr[-4000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = [8, 8, 260 if cfg.quant_mode == "int8" else 0]
+    if sub["launches"] != want or not sub["build_dir_untouched"] or sub["inductor_cache"]:
+        raise AssertionError(f"the {name} engine in a fresh process: launches (NMS, ROIAlign, K7) "
+                             f"{sub['launches']} (want {want}), _build/ untouched {sub['build_dir_untouched']}, "
+                             f"Inductor cache {sub['inductor_cache']} (want empty)")
+    served = np.load(out)
+    stats = []
+    for i, (molded, metas) in enumerate(batches):
+        ref_det, ref_masks = (t.float().cpu().numpy() for t in predictor._forward(molded.numpy(), metas.numpy()))
+        stats.append(agreement(served[f"det{i}"], served[f"masks{i}"], ref_det, ref_masks))
+    mean = {k: float(np.mean([s[k] for s in stats])) for k in stats[0]}
+    engine = load_engine(path, device)
+    images = torch.cat([m for m, _ in batches[:1]]).to(device)
+    metas = torch.cat([m for _, m in batches[:1]]).to(device)
+    times = {"engine": forward_ms(engine.run, images, metas), "eager": forward_ms(predictor.model, images, metas)}
+    log(f"  ({'c' if cfg.quant_mode == 'int8' else 'b'}) {name} flagship engine (ResNet-50-FPN, 512x512, 81 classes, "
+        f"batch 2): built in {build_s:.1f} s, {os.path.getsize(path) / 2**20:.1f} MiB; in a fresh process loaded in "
+        f"{sub['load_s']:.2f} s, first call {sub['first_call_s'] * 1e3:.1f} ms, _build/ untouched, Inductor cache "
+        f"empty; 4 requests: launches (NMS, ROIAlign, K7) {sub['launches']}; against eager per request (eager's "
+        f"valid detections, the share the engine has too at the same class and IoU >= 0.9 or corners within "
+        f"1e-3, their mask pixels equal at 0.5, class ids equal over all slots; held >= {ENGINE_MATCH_FLOOR}, "
+        f"{ENGINE_MASK_FLOOR}, {CROSS_MIN_CLASSES}): "
+        f"{[[s['valid'], round(s['matched'], 3), round(s['mask_pixels'], 4), round(s['all_slot_classes'], 3)] for s in stats]}")
+    log(f"  {name} forward at batch 2 (CUDA events, median of 10 after 3 warm-up, uint8 images on the card): engine "
+        f"{times['engine']:.2f} ms, eager {times['eager']:.2f} ms ({card})")
+    floors = dict(matched=ENGINE_MATCH_FLOOR, mask_pixels=ENGINE_MASK_FLOOR, all_slot_classes=CROSS_MIN_CLASSES)
+    low = {k: (mean[k], v) for k, v in floors.items() if not mean[k] >= v}
+    if low:
+        raise AssertionError(f"the {name} engine against eager, mean over the requests (measured, floor): {low}")
+    del engine
+    return dict(build_s=build_s, size_mib=os.path.getsize(path) / 2**20, load_s=sub["load_s"],
+                first_call_ms=sub["first_call_s"] * 1e3, launches=sub["launches"], agreement=mean,
+                engine_ms=times["engine"], eager_ms=times["eager"])
+
+
+def run_engine(device, card, requests, int8_state, root):
+    """Phase 18 (see the module's docstring). Returns the phase's numbers."""
+    start_phase = time.perf_counter()
+    log("== serving engines and program export (export/engine.py, export/serialize.py)")
+    tiny_path = engine_tiny(device, root)
+    cfg = flagship_config()
+    state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+    batches = list(request_batches(requests, cfg))
+    bf16 = engine_flagship("bf16", cfg, state, Predictor(cfg, state, device=device), batches, device, card, root)
+    torch.cuda.empty_cache()
+    qcfg, qstate = int8_state
+    int8 = engine_flagship("int8", qcfg, qstate, Predictor(qcfg, qstate, device=device), batches, device, card,
+                           root)
+    torch.cuda.empty_cache()
+    engine_gates(tiny_path, device, root)
+    log(f"== engine phase done in {time.perf_counter() - start_phase:.1f} s")
+    return {"bf16": bf16, "int8": int8}
 
 
 def main() -> None:
@@ -2439,7 +2749,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         dp = run_data_parallel(device, card, root, loop_ips)
         torch.cuda.empty_cache()
-        k7 = run_int8(device, card, requests, flush, root)
+        int8_state, k7 = run_int8(device, card, requests, flush, root)
+        torch.cuda.empty_cache()
+        engines = run_engine(device, card, requests, int8_state, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
@@ -2447,6 +2759,12 @@ def main() -> None:
                     "train_cli_launches": cli_launches[name], **dp[name]}
              for i, name in enumerate(("nms", "roi_align", "roi_align_backward"))}
 
+    for i, name in enumerate(("nms", "roi_align")):
+        extra[name].update(engine_launches=engines["bf16"]["launches"][i],
+                           int8_engine_launches=engines["int8"]["launches"][i])
+    k7["engine_launches"] = engines["int8"]["launches"][2]
+    k7["engine_forward_ms"] = {f"{name}_{kind}": engines[name][f"{kind}_ms"] for name in ("bf16", "int8")
+                               for kind in ("engine", "eager")}
     kernels = [
         dict(name="greedy_nms", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/nms.cu",
              replaces="maskrcnn_tf2_tpu/kernels/nms_pallas.py:29", launches=launches["nms"],
@@ -2481,7 +2799,8 @@ def main() -> None:
         f"in train_model under two gloo ranks, 6 steps and 4 eval steps; data_parallel_ms and its plain and "
         f"bound: rank 0's first data-parallel step (one image a rank, both call sites summed); int8_conv: ms, "
         f"plain_ms, bound_ms and library_ms summed over the 65 sites of one int8 request of 2 images, launches "
-        f"the 4 int8 requests'")
+        f"the 4 int8 requests'; engine_launches and int8_engine_launches: the 4 requests through the bf16 and the "
+        f"int8 flagship engine, each in a fresh process")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,18 @@ port (counterpart of ``maskrcnn_tf2_tpu/cli/detect.py``).
 Usage:
   python -m maskrcnn_tf2_tpu_torch.cli.detect --checkpoints_dir logs \\
       --backbone resnet50 --num_classes 81 --images a.jpg b.jpg [--out out/] [--int8] [--device cpu]
+  python -m maskrcnn_tf2_tpu_torch.cli.detect --checkpoints_dir logs \\
+      --build_engine mrcnn.engine [--engine_batch 2] [--int8 --images a.jpg ...] [--device cpu]
 
 With ``--out``, each image gets ``{name}.json`` (rois, class_ids, scores) and
 ``{name}_det.png``: each detection's box outlined in red (2 px, as
 ``cv2.rectangle`` draws it) and its mask blended half with green, detection
 by detection. ``--int8`` calibrates on the ``--images``, one image a batch,
-then serves the int8 model (``export/quantize.py``). ``--device`` defaults
-to the card and raises without one. ``--build_engine`` is not ported yet.
+then serves the int8 model (``export/quantize.py``). ``--build_engine PATH``
+compiles the served forward at ``--engine_batch`` into an engine
+(``export/engine.py``), writes it to PATH and exits: a plain build needs no
+images, an int8 one calibrates on ``--images``. ``--device`` defaults to the
+card and raises without one; an engine is built for that device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.data import image_io, raster
 from maskrcnn_tf2_tpu_torch.device import resolve_device
+from maskrcnn_tf2_tpu_torch.export.engine import build_engine
 from maskrcnn_tf2_tpu_torch.export.inference import process_input
 from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
@@ -48,18 +54,19 @@ def main(argv=None):
     p.add_argument("--num_classes", type=int, default=81)
     p.add_argument("--img_size", type=int, default=512)
     p.add_argument("--checkpoints_dir", default="logs")
-    p.add_argument("--images", nargs="+", default=None, help="image paths")
+    p.add_argument("--images", nargs="+", default=None,
+                   help="image paths; required unless --build_engine is given without --int8 (int8 calibrates on "
+                        "them)")
     p.add_argument("--out", default=None, help="directory for JSON + overlays")
     p.add_argument("--int8", action="store_true",
                    help="int8 post-training quantization: calibrate on the images, then serve the int8 model")
-    p.add_argument("--build_engine", default=None, metavar="PATH", help="not ported yet (ROADMAP A.9)")
-    p.add_argument("--engine_batch", type=int, default=1, help="not ported yet (ROADMAP A.9)")
+    p.add_argument("--build_engine", default=None, metavar="PATH",
+                   help="compile the served forward ahead of time (AOTInductor) into an engine at PATH, then exit")
+    p.add_argument("--engine_batch", type=int, default=1, help="the batch an engine of --build_engine serves")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.build_engine:
-        p.error("--build_engine: serving engines are not ported to PyTorch yet (ROADMAP A.9)")
-    if args.images is None:
-        p.error("--images is required")
+    if args.images is None and not (args.build_engine and not args.int8):
+        p.error("--images is required (only a plain --build_engine run, without --int8 calibration, can omit it)")
     device = resolve_device(args.device)
 
     cfg = MaskRCNNConfig(
@@ -83,6 +90,10 @@ def main(argv=None):
                 yield torch.from_numpy(molded[None]), torch.from_numpy(meta[None])
 
         cfg, state_dict = quantize_for_inference(cfg, state_dict, calib_batches(), device=device)
+    if args.build_engine:
+        out = build_engine(cfg, state_dict, args.build_engine, batch_size=args.engine_batch, device=device)
+        print(f"engine written: {out} (batch={args.engine_batch})")
+        return out
     pred = Predictor(cfg, state_dict, device=device)
     results = []
     for path in args.images:

@@ -1,8 +1,8 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so``, where the hash covers the source and the
-flags, so an edited source never loads a stale library. Nothing is built at
+into ``_build/lib<name>-<hash>.so``, where the hash (``source_digest``) covers
+the source and the flags, so an edited source never loads a stale library. Nothing is built at
 import time: the first call of a kernel on a CUDA tensor builds its library,
 and ``build`` builds several at once, one ``nvcc`` process per source, all
 started together.
@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -47,10 +49,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """sha256 of ``csrc/<name>.cu`` and the flags it is built with."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(name)[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -102,6 +108,15 @@ def load(name: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
                 fn.restype = restype
             _libs[name] = lib
         return lib
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous and 16-byte aligned, else a copy that is.
+    Inside a compiled graph a kernel's input can be a view at any offset of a
+    pooled buffer; a new tensor from the caching allocator is aligned."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

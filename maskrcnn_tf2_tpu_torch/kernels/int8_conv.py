@@ -1,7 +1,8 @@
 """Int8 convolution with its dequantize epilogue: the CUDA kernels, their plan and their plain version.
 
-``int8_conv`` launches ``csrc/int8_conv.cu`` for CUDA tensors and runs
-``int8_conv_plain`` for CPU tensors. Both compute what the JAX package's
+``int8_conv`` (the op ``maskrcnn_tf2_tpu_torch::int8_conv``) launches
+``csrc/int8_conv.cu`` for CUDA tensors and runs ``int8_conv_plain`` for CPU
+tensors. Both compute what the JAX package's
 ``models/quant.py::Int8Conv`` leaves to XLA: an s8 x s8 convolution with flax's
 "SAME" pads and an int32 sum, then ``acc.float() * (sx * sw) + bias``, cast to
 the output dtype, each step rounded once. Tensors are channels-last:
@@ -210,36 +211,64 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor, sw: torc
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
               bias: Optional[torch.Tensor], stride: int = 1, groups: int = 1,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.float32, tile: int = 0, split: int = 0) -> torch.Tensor:
     """Int8 convolution ``x [N, H, W, C]`` by ``w [O, kh, kw, C / groups]``
     with "SAME" pads, dequantized by ``sx`` (a float32 scalar tensor) and
     ``sw [O]``, plus ``bias [O]`` when given: ``[N, Ho, Wo, O]`` in
-    ``out_dtype`` (float32 or bfloat16). CPU tensors take the plain version;
-    CUDA tensors launch the kernel ``plan`` chooses: ``int8_conv.last_path``
-    names it (``tensor-core`` for one group; ``grouped depthwise``, ``grouped
-    dp4a words`` or ``grouped bytes`` for several) and ``int8_conv.last_plan``
-    holds the whole plan."""
+    ``out_dtype`` (float32 or bfloat16), through the op
+    ``maskrcnn_tf2_tpu_torch::int8_conv``. CPU tensors take the plain
+    version; CUDA tensors (contiguous copies where they are not) launch the
+    kernel ``plan`` chooses: ``int8_conv.last_path`` names it
+    (``tensor-core`` for one group; ``grouped depthwise``, ``grouped dp4a
+    words`` or ``grouped bytes`` for several) and ``int8_conv.last_plan``
+    holds the whole plan. ``tile`` and ``split``, where not 0, override the
+    plan's (for measuring the alternatives)."""
     _check_inputs(x, w, sx, sw, bias, stride, groups, out_dtype)
-    if x.device.type == "cpu":
-        return int8_conv_plain(x, w, sx, sw, bias, stride, groups, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv runs on cpu or cuda, not {x.device}")
-    tensors = [x, w, sx, sw] + ([] if bias is None else [bias])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("int8_conv needs contiguous x, w, sx, sw and bias")
+    return _int8_conv_op(x, w, sx, sw, bias, int(stride), int(groups), _DTYPE_CODES[out_dtype], int(tile),
+                         int(split))
+
+
+# The op takes the output dtype as the kernels' dtype code: torch 2.11's
+# AOTInductor hands a custom op's ScalarType argument over as another dtype
+# (float32 arrives as float64, bfloat16 as quint8).
+_OUT_DTYPES = {code: dtype for dtype, code in _DTYPE_CODES.items()}
+
+
+@torch.library.custom_op("maskrcnn_tf2_tpu_torch::int8_conv", mutates_args=(), device_types="cpu")
+def _int8_conv_op(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor, bias: Optional[torch.Tensor],
+                  stride: int, groups: int, out_dtype: int, tile: int, split: int) -> torch.Tensor:
+    return int8_conv_plain(x, w, sx, sw, bias, stride, groups, _OUT_DTYPES[out_dtype])
+
+
+@_int8_conv_op.register_fake
+def _(x, w, sx, sw, bias, stride, groups, out_dtype, tile, split):
+    out_dtype = _OUT_DTYPES[out_dtype]
+    _check_inputs(x, w, sx, sw, bias, stride, groups, out_dtype)
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, -(-h // stride), -(-wd // stride), w.shape[0]), dtype=out_dtype)
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _(x, w, sx, sw, bias, stride, groups, out_dtype, tile, split):
+    out_dtype = _OUT_DTYPES[out_dtype]
+    _check_inputs(x, w, sx, sw, bias, stride, groups, out_dtype)
+    x, w, sx, sw = (t.contiguous() for t in (x, w, sx, sw))  # the plan takes any alignment
+    bias = None if bias is None else bias.contiguous()
     n, h, wd, c = x.shape
     o, kh, kw, _ = w.shape
     y = torch.empty((n, -(-h // stride), -(-wd // stride), o), dtype=out_dtype, device=x.device)
     if n == 0:
         return y
-    return launch(plan(n, h, wd, c, o, kh, kw, stride, groups, _alignment(x), _alignment(w), SMS), x, w, sx, sw,
-                  bias, stride, groups, y)
+    p = plan(n, h, wd, c, o, kh, kw, stride, groups, _alignment(x), _alignment(w), SMS, tile, split)
+    return _launch(p, x, w, sx, sw, bias, stride, groups, y)
 
 
-def launch(p: Plan, x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
-           bias: Optional[torch.Tensor], stride: int, groups: int, y: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel of plan ``p`` into ``y``, the checked inputs of
-    ``int8_conv`` on the card, and count the launch."""
+def _launch(p: Plan, x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+            bias: Optional[torch.Tensor], stride: int, groups: int, y: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel of plan ``p`` into ``y``, the checked contiguous
+    inputs of ``int8_conv`` on the card, and count the launch."""
     n, h, wd, c = x.shape
     o, kh, kw, _ = w.shape
     top, _ = same_pad_amounts(h, kh, stride)

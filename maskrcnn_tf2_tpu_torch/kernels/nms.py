@@ -1,8 +1,11 @@
 """Exact greedy NMS over score-sorted boxes: the CUDA kernel and its plain version.
 
-``greedy_nms`` launches ``csrc/nms.cu`` for CUDA tensors (one launcher call
-for the whole batch: an IoU bitmask kernel over the card, then a scan kernel
-with one block per image) and runs ``greedy_nms_plain`` for CPU tensors.
+``greedy_nms`` calls the op ``maskrcnn_tf2_tpu_torch::greedy_nms``, which
+launches ``csrc/nms.cu`` for CUDA tensors (one launcher call for the whole
+batch: an IoU bitmask kernel over the card, then a scan kernel with one block
+per image) and runs ``greedy_nms_plain`` for CPU tensors; its fake
+implementation gives tracers (``torch.export``, AOTInductor) the output
+shapes, so a compiled graph calls the kernel as one opaque op.
 Both return the compacted contract of ``ops.nms.non_max_suppression``: the
 positions of the first ``limit`` kept boxes on the sorted axis, in order,
 zero-padded, with a validity mask.
@@ -122,18 +125,37 @@ def greedy_nms(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS of score-sorted boxes ``[B, N, 4]`` with mask ``[B, N]``.
 
-    Returns ``(positions [B, limit] int32, valid [B, limit] bool)``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    Returns ``(positions [B, limit] int32, valid [B, limit] bool)``, through
+    the op ``maskrcnn_tf2_tpu_torch::greedy_nms``: CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
     """
     _check_inputs(boxes_s, valid_s, limit)
-    if boxes_s.device.type == "cpu":
-        return greedy_nms_plain(boxes_s, valid_s, iou_threshold, limit)
-    if boxes_s.device.type != "cuda":
+    if boxes_s.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_nms runs on cpu or cuda, not {boxes_s.device}")
-    if not (boxes_s.is_contiguous() and valid_s.is_contiguous()):
-        raise ValueError("greedy_nms needs contiguous boxes and valid")
-    if boxes_s.data_ptr() % 16:
-        raise ValueError("greedy_nms reads boxes as float4: they must be 16-byte aligned")
+    return _greedy_nms_op(boxes_s, valid_s, float(iou_threshold), int(limit))
+
+
+greedy_nms.launches = 0
+
+
+@torch.library.custom_op("maskrcnn_tf2_tpu_torch::greedy_nms", mutates_args=(), device_types="cpu")
+def _greedy_nms_op(
+    boxes_s: torch.Tensor, valid_s: torch.Tensor, iou_threshold: float, limit: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return greedy_nms_plain(boxes_s, valid_s, iou_threshold, limit)
+
+
+@_greedy_nms_op.register_fake
+def _(boxes_s, valid_s, iou_threshold, limit):
+    _check_inputs(boxes_s, valid_s, limit)
+    b = boxes_s.shape[0]
+    return boxes_s.new_empty((b, limit), dtype=torch.int32), boxes_s.new_empty((b, limit), dtype=torch.bool)
+
+
+@_greedy_nms_op.register_kernel("cuda")
+def _(boxes_s, valid_s, iou_threshold, limit):
+    _check_inputs(boxes_s, valid_s, limit)
+    boxes_s, valid_s = _build.aligned(boxes_s), valid_s.contiguous()  # the boxes are read as float4
     b, n, _ = boxes_s.shape
     check_kernel_boxes(n)
     positions = torch.empty((b, limit), dtype=torch.int32, device=boxes_s.device)
@@ -160,9 +182,6 @@ def greedy_nms(
     _build.check(lib, status, "greedy_nms")
     greedy_nms.launches += 1
     return positions, out_valid
-
-
-greedy_nms.launches = 0
 
 
 _SIGNATURES = {

@@ -1,10 +1,11 @@
 """Pyramid ROIAlign, forward and backward: the CUDA kernels and their plain
 versions.
 
-``roi_align`` launches ``csrc/roi_align.cu``'s forward kernel for CUDA
-tensors (one launch for the batch; a block pools a range of bin rows of one
-ROI, threads over 16-byte channel vectors where ``vector_width`` allows them)
-and runs ``roi_align_plain`` for CPU tensors. Each ROI is pooled from the FPN
+``roi_align`` (the op ``maskrcnn_tf2_tpu_torch::roi_align``) launches
+``csrc/roi_align.cu``'s forward kernel for CUDA tensors (one launch for the
+batch; a block pools a range of bin rows of one ROI, threads over 16-byte
+channel vectors where ``vector_width`` allows them) and runs
+``roi_align_plain`` for CPU tensors. Each ROI is pooled from the FPN
 level the reference's formula assigns it, with ``crop_and_resize`` bilinear
 samples whose grid endpoints sit on the box corners scaled by ``(H_l - 1,
 W_l - 1)``; corners clamp to the map and zero-area boxes pool zeros
@@ -12,10 +13,11 @@ W_l - 1)``; corners clamp to the map and zero-area boxes pool zeros
 ROI order, in the features' dtype; both versions sum the four weighted
 corners in float32 and round once.
 
-``roi_align_backward`` is its transpose: each sample's pooled cotangent,
-times the same four weights, is added to the sample's four corner pixels in
-maps ``[B, H_l, W_l, C]``; sums in float32, one rounding to the cotangent's
-dtype. The CUDA kernel gathers (owner computes): a block owns a tile of one
+``roi_align_backward`` (the op ``maskrcnn_tf2_tpu_torch::roi_align_backward``)
+is its transpose: each sample's pooled cotangent, times the same four
+weights, is added to the sample's four corner pixels in maps ``[B, H_l, W_l,
+C]``; sums in float32, one rounding to the cotangent's dtype. The CUDA
+kernel gathers (owner computes): a block owns a tile of one
 level's map, a warp a pixel, a lane a channel vector, and each output value is
 summed in a register in the fixed order ROI, sample row, sample column,
 corner, and written once: no float32 scratch, no atomics, the same bits from
@@ -178,20 +180,38 @@ def roi_align(
     denominator: float = 244.0,
 ) -> torch.Tensor:
     """Pool ``boxes [B, N, 4]`` (normalized, float32) from the level maps
-    ``features`` (``[B, H_l, W_l, C]``, finest first) into ``[B, N, P, P, C]``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    needs contiguous channels-last maps.
+    ``features`` (``[B, H_l, W_l, C]``, finest first) into ``[B, N, P, P, C]``,
+    through the op ``maskrcnn_tf2_tpu_torch::roi_align``: CPU tensors take the
+    plain version; CUDA tensors launch the kernel, on contiguous channels-last
+    maps (copies where the maps are not, or the boxes are off 16 bytes).
     """
     _check_inputs(features, boxes)
-    if boxes.device.type == "cpu":
-        return roi_align_plain(features, boxes, pool_size, image_shape, denominator)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roi_align runs on cpu or cuda, not {boxes.device}")
-    if not (boxes.is_contiguous() and all(f.is_contiguous() for f in features)):
-        raise ValueError("roi_align needs contiguous boxes and [B, H, W, C] maps")
-    if boxes.data_ptr() % 16:
-        raise ValueError("roi_align reads boxes as float4: they must be 16-byte aligned")
+    return _roi_align_op(list(features), boxes, int(pool_size), [int(v) for v in image_shape], float(denominator))
+
+
+roi_align.launches = 0
+
+
+@torch.library.custom_op("maskrcnn_tf2_tpu_torch::roi_align", mutates_args=(), device_types="cpu")
+def _roi_align_op(features: List[torch.Tensor], boxes: torch.Tensor, pool_size: int, image_shape: List[int],
+                  denominator: float) -> torch.Tensor:
+    return roi_align_plain(features, boxes, pool_size, image_shape, denominator)
+
+
+@_roi_align_op.register_fake
+def _(features, boxes, pool_size, image_shape, denominator):
+    _check_inputs(features, boxes)
+    b, n, _ = boxes.shape
+    return features[0].new_empty((b, n, pool_size, pool_size, features[0].shape[-1]))
+
+
+@_roi_align_op.register_kernel("cuda")
+def _(features, boxes, pool_size, image_shape, denominator):
+    _check_inputs(features, boxes)
+    boxes = _build.aligned(boxes)  # float4 reads
+    features = [f.contiguous() for f in features]  # any alignment: vector_width picks the copy width
     check_pool_size(pool_size)
     b, n, _ = boxes.shape
     c = features[0].shape[-1]
@@ -215,9 +235,6 @@ def roi_align(
     _build.check(lib, status, "roi_align")
     roi_align.launches += 1
     return out
-
-
-roi_align.launches = 0
 
 
 def _check_backward_inputs(dout: torch.Tensor, boxes: torch.Tensor, level_hw) -> None:
@@ -279,25 +296,52 @@ def roi_align_backward(
     P, C]`` -> one ``[B, H_l, W_l, C]`` map per entry of ``level_hw``, in
     ``dout``'s dtype. The boxes get no gradient.
 
-    CPU tensors take the plain version; CUDA tensors launch the
-    owner-computes kernel, one launch for all levels, whatever the shape: it
-    writes every element of the maps (zeros where no ROI reaches), so they
-    come from ``torch.empty`` and there is no scratch.
+    Through the op ``maskrcnn_tf2_tpu_torch::roi_align_backward``, which
+    returns the maps back to back in one flat tensor: CPU tensors take the
+    plain version; CUDA tensors launch the owner-computes kernel, one launch
+    for all levels, whatever the shape: it writes every element of the maps
+    (zeros where no ROI reaches), so they come from ``torch.empty`` and there
+    is no scratch.
     """
     _check_backward_inputs(dout, boxes, level_hw)
-    if boxes.device.type == "cpu":
-        return roi_align_backward_plain(dout, boxes, level_hw, image_shape, denominator)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roi_align_backward runs on cpu or cuda, not {boxes.device}")
-    if not (boxes.is_contiguous() and dout.is_contiguous()):
-        raise ValueError("roi_align_backward needs contiguous boxes and dout")
-    if boxes.data_ptr() % 16:
-        raise ValueError("roi_align_backward reads boxes as float4: they must be 16-byte aligned")
+    flat_hw = [int(v) for hw in level_hw for v in hw]
+    flat = _roi_align_backward_op(dout, boxes, flat_hw, [int(v) for v in image_shape], float(denominator))
+    return _split_levels(flat, dout.shape[0], level_hw, dout.shape[-1])
+
+
+roi_align_backward.launches = 0
+
+
+def _pairs(flat_hw: Sequence[int]) -> List[Tuple[int, int]]:
+    return list(zip(flat_hw[::2], flat_hw[1::2]))
+
+
+@torch.library.custom_op("maskrcnn_tf2_tpu_torch::roi_align_backward", mutates_args=(), device_types="cpu")
+def _roi_align_backward_op(dout: torch.Tensor, boxes: torch.Tensor, level_hw: List[int], image_shape: List[int],
+                           denominator: float) -> torch.Tensor:
+    maps = roi_align_backward_plain(dout, boxes, _pairs(level_hw), image_shape, denominator)
+    return torch.cat([m.reshape(-1) for m in maps])
+
+
+@_roi_align_backward_op.register_fake
+def _(dout, boxes, level_hw, image_shape, denominator):
+    _check_backward_inputs(dout, boxes, _pairs(level_hw))
+    b, c = dout.shape[0], dout.shape[-1]
+    return dout.new_empty((b * c * sum(h * w for h, w in _pairs(level_hw)),))
+
+
+@_roi_align_backward_op.register_kernel("cuda")
+def _(dout, boxes, level_hw, image_shape, denominator):
+    level_hw = _pairs(level_hw)
+    _check_backward_inputs(dout, boxes, level_hw)
+    dout, boxes = dout.contiguous(), _build.aligned(boxes)  # boxes read as float4
     b, n, p, _, c = dout.shape
     check_pool_size(p)
     out = torch.empty(b * c * sum(h * w for h, w in level_hw), dtype=dout.dtype, device=boxes.device)
     if out.numel() == 0:
-        return _split_levels(out, b, level_hw, c)
+        return out
     hw = list(level_hw) + [(0, 0)] * (MAX_LEVELS - len(level_hw))
     image_area = np.float32(float(image_shape[0]) * float(image_shape[1]))
     image_scale = np.float32(denominator) / np.sqrt(image_area)
@@ -311,10 +355,8 @@ def roi_align_backward(
         )
     _build.check(lib, status, "roi_align_backward")
     roi_align_backward.launches += 1
-    return _split_levels(out, b, level_hw, c)
+    return out
 
-
-roi_align_backward.launches = 0
 
 _SIGNATURES = {
     "roi_align_launch": (

@@ -27,10 +27,14 @@ weights to the compute dtype, since quantizing a bfloat16 copy would give
 other ``wq`` and ``sw``. A site not frozen quantizes its float32 weight at
 every call.
 
-Every division here divides by a tensor on the operand's device: on CUDA,
-PyTorch turns a division by a Python scalar or a CPU scalar tensor into a
-multiply by the reciprocal, which moves ``round()`` at .5. ``torch.round``
-rounds half to even, as ``jnp.round`` does.
+Every division here rounds as the float32 IEEE division does, also where a
+backend multiplies by the reciprocal instead, which would move ``round()``
+at .5: PyTorch's CUDA division by a Python scalar or a CPU scalar tensor
+does, and so does Inductor for any divisor it knows at compile time.
+``x / sx`` divides by a tensor (an engine does not fold it into a
+constant, ``export/engine.py::_eager_numerics``), and ``_div`` takes the
+scales' ``/ 127`` in float64.
+``torch.round`` rounds half to even, as ``jnp.round`` does.
 
 The JAX package's A/B switches are read at each call, as it reads them while
 tracing: ``MASKRCNN_TPU_INT8_QRES`` and ``MASKRCNN_TPU_INT8_QC`` (the
@@ -79,8 +83,14 @@ def check_pet() -> None:
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` divided by a tensor on ``a``'s device (an IEEE division)."""
-    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+    """``a / b`` for float32 ``a`` and ``b = 127``, the float32 IEEE quotient
+    on any backend: the quotient is taken in float64 and rounded to float32.
+    Taken through float64's reciprocal instead, it rounds to the same float32
+    for every positive normal float32 ``a`` (a quotient by 127 is never
+    within float64's error of a float32 rounding midpoint;
+    ``tests/test_torch_port_int8.py::test_scale_division_is_ieee`` checks a
+    sample of 21 million)."""
+    return (a.to(torch.float64) / b).to(torch.float32)
 
 
 def record_amax_(amax: torch.Tensor, x: torch.Tensor) -> None:

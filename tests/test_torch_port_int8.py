@@ -190,6 +190,19 @@ def test_int8_dense_matches_jax(layer):
     np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
 
 
+def test_scale_division_is_ieee():
+    """The scales' ``/ 127`` (``quant._div``) is the float32 IEEE quotient, and
+    so is the float64 reciprocal multiply that a backend (eager CUDA,
+    Inductor) may take in its place, on every 101st positive normal float32
+    (21 million values)."""
+    from maskrcnn_tf2_tpu_torch.models.quant import _div
+
+    a = np.arange(0x00800000, 0x7F800000, 101, dtype=np.uint32).view(np.float32)
+    want = a / np.float32(127.0)
+    np.testing.assert_array_equal(_div(torch.from_numpy(a), 127.0).numpy(), want)
+    np.testing.assert_array_equal((a.astype(np.float64) * (1.0 / 127.0)).astype(np.float32), want)
+
+
 def test_pet_switch_is_not_ported(monkeypatch):
     tm = Int8Conv2d(8, 8, 3, quant="int8")
     monkeypatch.setenv("MASKRCNN_TPU_INT8_PET", "bf16")

@@ -764,3 +764,78 @@ def test_int8_conv_kernel_split_on_and_off(cuda, monkeypatch, case, sms):
         assert (port_int8_kernel.int8_conv.last_plan.split > 1) == (sms > 1)
         assert torch.equal(got, want)
     assert all(int(buf.abs().sum()) == 0 for buf in port_int8_kernel._counters.values())
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops, on the card
+# ---------------------------------------------------------------------------
+
+OPS = torch.ops.maskrcnn_tf2_tpu_torch
+
+
+def op_case(name):
+    """``(op, CPU args, the wrapper whose counter the launch raises, the plain
+    version as a function of the op's args, tolerance as a share of the
+    plain output's max)``; float32 throughout."""
+    rs = np.random.RandomState(sum(map(ord, name)))
+    if name == "greedy_nms":
+        boxes_s, valid_s, limit, thr = sorted_nms_case("unsorted_class_offsets")
+        return (OPS.greedy_nms.default, (T(boxes_s), T(valid_s), thr, limit), port_nms_kernel.greedy_nms,
+                port_nms_kernel.greedy_nms_plain, 0.0)
+    boxes = T(roi_boxes(rs, 2, 64))
+    if name == "roi_align":
+        feats = [T(f) for f in pyramid(rs, 2, 256, 64)]
+        return (OPS.roi_align.default, (feats, boxes, 7, [256, 256], 244.0), port_roi_kernel.roi_align,
+                port_roi_kernel.roi_align_plain, 1e-5)
+    if name == "roi_align_backward":
+        level_hw = [(64, 64), (32, 32), (16, 16), (8, 8)]
+
+        def plain(dout, boxes, flat_hw, image_shape, denominator):
+            maps = port_roi_kernel.roi_align_backward_plain(dout, boxes, level_hw, image_shape, denominator)
+            return torch.cat([m.reshape(-1) for m in maps])
+
+        dout = T(rs.normal(size=(2, 64, 14, 14, 64)).astype(np.float32))
+        return (OPS.roi_align_backward.default, (dout, boxes, [v for hw in level_hw for v in hw], [256, 256], 244.0),
+                port_roi_kernel.roi_align_backward, plain, 1e-5)
+    x, w, sx, sw, bias, stride, groups = int8_case("3x3_s1_c64")
+
+    def plain(x, w, sx, sw, bias, stride, groups, out_dtype, tile, split):
+        return port_int8_kernel.int8_conv_plain(x, w, sx, sw, bias, stride, groups, torch.float32)
+
+    return (OPS.int8_conv.default, (x, w, sx, sw, bias, stride, groups, 0, 0, 0),  # dtype code 0: float32
+            port_int8_kernel.int8_conv, plain, 0.0)
+
+
+def at_offset(t, device, offset):
+    """``t`` on ``device`` as a view ``offset`` elements into a larger buffer:
+    at 1, off every 16-byte boundary, as an input can lie inside a compiled
+    graph's pooled buffer."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+    view = buf[offset:].view(t.shape).copy_(t)
+    assert offset == 0 or view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", ["greedy_nms", "roi_align", "roi_align_backward", "int8_conv"])
+def test_op_launches_its_kernel_and_equals_plain(cuda, name, offset):
+    """Each op on CUDA tensors launches its kernel once (its wrapper's counter
+    up by one) and equals the plain version; handed views off every 16-byte
+    boundary it still launches (on its own aligned copies where the kernel
+    reads 16 bytes at a time) and still equals it."""
+    op, args, wrapper, plain, tol = op_case(name)
+    args = torch.utils._pytree.tree_map(lambda t: at_offset(t, cuda, offset), args)
+    before = wrapper.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*args)
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if tol == 0:
+            assert torch.equal(g, w)
+        else:
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())

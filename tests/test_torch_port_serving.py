@@ -354,13 +354,24 @@ def test_detect_cli_int8_calibrates_and_serves(tmp_path, monkeypatch):
         assert image_io.imread(os.path.join(out, f"img{i}_det.png")).shape == img.shape
 
 
-@pytest.mark.parametrize("flag,item", [(["--build_engine", "engine.bin"], "ROADMAP A.9")])
-def test_detect_cli_names_what_is_not_ported(capsys, flag, item):
+def test_detect_cli_int8_build_engine_requires_images(capsys, tmp_path):
+    """``--int8`` calibrates on the images, so ``--build_engine --int8``
+    without them is refused (``tests/test_cli_args.py``'s rule)."""
     from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
 
     with pytest.raises(SystemExit) as err:
-        cli_detect.main(["--images", "a.jpg", *flag, "--device", "cpu"])
-    assert err.value.code != 0 and item in capsys.readouterr().err
+        cli_detect.main(["--build_engine", str(tmp_path / "x.engine"), "--int8", "--device", "cpu"])
+    assert err.value.code != 0 and "--images is required" in capsys.readouterr().err
+
+
+def test_detect_cli_plain_build_engine_passes_validation(tmp_path):
+    """A plain ``--build_engine`` needs no images: validation passes and the
+    run fails later, on the unknown backbone, before any graph is built."""
+    from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
+
+    with pytest.raises(ValueError, match="unknown backbone"):
+        cli_detect.main(["--build_engine", str(tmp_path / "x.engine"), "--backbone", "nosuch", "--device", "cpu"])
+    assert not (tmp_path / "x.engine").exists()
 
 
 @pytest.mark.parametrize("cli", ["detect", "evaluate"])

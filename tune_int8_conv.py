@@ -89,7 +89,6 @@ def variants(a, chosen, want, flush, reps):
     x, w, sx, sw, bias, stride, groups, dtype = a
     n, h, wd, c = x.shape
     o, kh, kw, _ = w.shape
-    y = torch.empty_like(want)
     seen, out = {chosen}, []
     for tile in k7.TILES:
         for split in (0, 1, 2, 4):
@@ -97,10 +96,16 @@ def variants(a, chosen, want, flush, reps):
             if p in seen:
                 continue
             seen.add(p)
-            k7.launch(p, x, w, sx, sw, bias, stride, groups, y)
+
+            def run():
+                return k7.int8_conv(x, w, sx, sw, bias, stride, groups, dtype, tile=tile, split=split)
+
+            y = run()
+            if k7.int8_conv.last_plan != p:
+                raise AssertionError(f"{tuple(x.shape)} * {tuple(w.shape)}: asked for {p}, ran {k7.int8_conv.last_plan}")
             if not torch.equal(y, want):
                 raise AssertionError(f"{tuple(x.shape)} * {tuple(w.shape)} under {p}: differs from the plain version")
-            ms = cs.kernel_ms(lambda: k7.launch(p, x, w, sx, sw, bias, stride, groups, y), reps, flush)
+            ms = cs.kernel_ms(run, reps, flush)
             out.append(f"{p.tile}/s{p.split} {ms:.4f}")
     return "variants " + ", ".join(out)
 
