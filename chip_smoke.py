@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and training step on one CUDA
-card, on every backbone of the zoo, and hold its kernels against their plain
-PyTorch versions.
+card, on every backbone of the zoo, data- and tensor-parallel, and hold its
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -44,8 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                dtypes) and on a float32 pyramid over 88 MiB (the TPU's second
                backward kernel's regime); every hold also launches twice and
                wants the same bits, and wants exact zeros, in maps from
-               ``torch.empty`` over poisoned memory, wherever the plain maps
-               are zero; the ROIs per tile and terms per pixel of the captured
+               ``torch.empty`` over poisoned memory, wherever no ROI reaches
+               (the plain backward of a cotangent of ones is zero there); the
+               ROIs per tile and terms per pixel of the captured
                calls are printed; times as in 4.
 8. tiny train cross-check -- one training step of a small float32 model,
                card against CPU, same weights and draws: losses within 1e-4
@@ -207,7 +208,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                int8;
                (d) a flipped byte, a trailing byte, a foreign device name,
                torch version and kernel digest, each refused with its error.
-19. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+19. tensor parallel -- ``parallel/gspmd.py`` and ``Predictor(data_parallel=
+               True)`` at the flagship's widths (FC 1024 split 512 + 512),
+               gloo ranks and replicas sharing the card through
+               ``multihost_dryrun.launch`` (every wait bounded; a failed rank
+               fails the script): (a) DP1xTP2, two ranks, 3 steps: launches
+               (1, 2, 2) a step on each rank, FC shards [512, 12544] and
+               [1024, 512], after every step the replicated leaves
+               bit-identical over the world, each shard over its data group
+               and FC1's input over the model group; the first update
+               gathered whole and held by phase 16's rule against one
+               process's ``make_train_step`` whose classifier computes the
+               split head's arithmetic; K1, K3 and K4 held against their
+               plain versions on rank 0's first-step inputs; (b) DP2xTP2,
+               four ranks, one image a data rank, 2 steps with the same
+               checks, the first update held on a float32 step with the batch
+               norms on running averages (with batch statistics the data
+               ranks sum them in another order, which the backbone's
+               gradients amplify at random weights); (c) ``train_model`` in
+               gspmd mode under DP1xTP2 on phase 10's COCO directory (1 epoch
+               of 3 steps, validation, launches exact, rank 0 alone writes a
+               whole checkpoint), then that checkpoint restored into one
+               process and served; (d) ``Predictor(data_parallel=True,
+               devices=["cuda:0", "cuda:0"])`` on the 4 requests: (NMS,
+               ROIAlign) (2, 2) a replica a request, against the single
+               predictor on each replica's rows (one image: cuDNN's
+               algorithms depend on the batch) at phase 18's and phase
+               17(d)'s floors,
+               ``detect_stream`` equal to ``detect``, one int8 request with
+               K7 65 a replica. Prints the model-group all-reduces' bytes and
+               ms, the steps' ms beside the single-process step's, the two
+               predictors' forwards; ranks and replicas share one card, so
+               no number is a scaling number. ``--only tensor-parallel``
+               runs this phase alone (its own COCO directory and int8
+               calibration; no kernels' line).
+20. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -259,8 +294,8 @@ from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
-from maskrcnn_tf2_tpu_torch.parallel import distributed, multihost_dryrun
-from maskrcnn_tf2_tpu_torch.parallel.mesh import check_replicated, shard_batch
+from maskrcnn_tf2_tpu_torch.parallel import distributed, gspmd, multihost_dryrun
+from maskrcnn_tf2_tpu_torch.parallel.mesh import check_replicated, make_mesh_2d, shard_batch
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
 from maskrcnn_tf2_tpu_torch.train.loop import step_generator, train_model
@@ -677,8 +712,13 @@ def hold_backward_case(name, dout, boxes, level_hw, image_shape):
     """Kernel against plain: one bf16 ulp of max|plain| in bf16, 1e-5 * max|plain|
     in float32. Two launches give the same bits. The kernel's maps come from
     ``torch.empty`` over memory just filled with NaNs, and are exactly zero
-    wherever the plain maps are (no ROI reaches there)."""
+    wherever no ROI reaches: where the plain backward of a cotangent of ones
+    (bilinear weights are >= 0) is zero. (A reached pixel's plain sum, in
+    ``index_add_``'s order, can cancel to an exact zero that the kernel's
+    order of summation does not reproduce.)"""
     want = roi_kernel.roi_align_backward_plain(dout, boxes, level_hw, image_shape)
+    reached = roi_kernel.roi_align_backward_plain(torch.ones_like(dout, dtype=torch.float32), boxes, level_hw,
+                                                  image_shape)
     poison = torch.full((sum(w.numel() for w in want),), float("nan"), dtype=dout.dtype, device=dout.device)
     del poison  # the allocator hands this block to the next torch.empty of its size
     got = roi_kernel.roi_align_backward(dout, boxes, level_hw, image_shape)
@@ -691,7 +731,7 @@ def hold_backward_case(name, dout, boxes, level_hw, image_shape):
         raise AssertionError(f"ROIAlign backward ({name}, {dout.dtype}) error {err} > {tol}")
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
         raise AssertionError(f"ROIAlign backward ({name}, {dout.dtype}): two launches differ")
-    if not all(bool((g[w == 0] == 0).all()) for g, w in zip(got, want)):
+    if not all(bool((g[r == 0] == 0).all()) for g, r in zip(got, reached)):
         raise AssertionError(f"ROIAlign backward ({name}, {dout.dtype}): a pixel no ROI reaches is not zero")
     return err, scale
 
@@ -1666,7 +1706,7 @@ def dp_steps(rank, cfg, device, group, batch, out, calls=None):
     return first
 
 
-def hold_dp_calls(calls, device):
+def hold_dp_calls(calls, device, what=f"data-parallel inputs (rank 0 of {DP_RANKS}, one image a rank)"):
     """Each kernel of the data-parallel step against its plain version on the
     inputs its wrapper got in rank 0's first step (one image a rank), timed
     beside its bound; the matmul and cuDNN TF32 flags, which the ROIAlign
@@ -1674,8 +1714,7 @@ def hold_dp_calls(calls, device):
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=device)
     try:
-        log(f"== holds, data-parallel inputs (rank 0 of {DP_RANKS}, one image a rank): greedy NMS and pyramid "
-            f"ROIAlign forward kernels vs their plain versions")
+        log(f"== holds, {what}: greedy NMS and pyramid ROIAlign forward kernels vs their plain versions")
         return dict(nms=hold_nms(calls["nms"], flush), roi_align=hold_roi_align(calls["roi_align"], flush),
                     roi_align_backward=hold_roi_backward(calls["roi_align_backward"], flush, shape_cases=False))
     finally:
@@ -2659,9 +2698,474 @@ def run_engine(device, card, requests, int8_state, root):
     return {"bf16": bf16, "int8": int8}
 
 
+# ---------------------------------------------------------------------------
+# tensor parallel and data-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_SHARDS = 2
+
+
+def tp_config() -> MaskRCNNConfig:
+    """The flagship's training configuration with its classifier FCs split
+    over two model ranks (1024 = 512 + 512)."""
+    return flagship_train_config().replace(parallel_mode="gspmd", tp_shards=TP_SHARDS)
+
+
+def bits_checksum(t: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums of ``t``'s raw bits: of the words and of the words
+    weighted by their position (mod 65521)."""
+    words = t.detach().contiguous().reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    words = words.to(torch.int64)
+    weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return torch.stack([words.sum(), (words * weights).sum()])
+
+
+def check_equal_over(c: torch.Tensor, group, what: str) -> None:
+    """Raise unless ``c`` is equal on every rank of ``group`` (one MAX
+    all-reduce of ``[c, -c]``)."""
+    both = torch.cat([c, -c]).cpu()
+    torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX, group=group)
+    if not torch.equal(both[:len(c)], -both[len(c):]):
+        raise AssertionError(f"{what} differs across the ranks of its group")
+
+
+def group_all_reduce_ms(shape, group, device, reps=3):
+    """Median ms of one float32 all-reduce of ``shape`` over ``group`` on the
+    host clock (the card synchronized around each), after one warm-up."""
+    t = torch.ones(shape, dtype=torch.float32, device=device)
+    torch.distributed.all_reduce(t, group=group)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        torch.distributed.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times))
+
+
+def tp_draws(cfg, mesh, step, device):
+    """The global batch's draws of ``step``: each data rank's, drawn as its
+    rank draws them (``step_generator`` by data rank), concatenated."""
+    per = cfg.batch_size // mesh.n_data
+    parts = [draw_uniforms(cfg, per, step_generator(SEED, step, r), device) for r in range(mesh.n_data)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def split_head_forward(head, k):
+    """``head``'s forward with the tensor-parallel head's arithmetic in one
+    process: FC1 and its batch norm as ``k`` blocks of output features, each
+    block's FC2 partial product in float32, the partials summed in order and
+    FC2's bias added once before the one rounding to the compute dtype.
+    The whole parameters stay the model's, so the update compares leaf by
+    leaf with the gathered one."""
+    fc1, bn1, fc2 = head.mrcnn_class_conv1, head.mrcnn_class_bn1, head.mrcnn_class_conv2
+
+    def block_batch_norm(h, rows):
+        if not bn1.training:
+            return F.batch_norm(h, bn1.running_mean[rows], bn1.running_var[rows], bn1.weight[rows], bn1.bias[rows],
+                                False, 0.0, bn1.eps)
+        mean, var = torch.zeros_like(bn1.running_mean[rows]), torch.ones_like(bn1.running_var[rows])
+        y = F.batch_norm(h, mean, var, bn1.weight[rows], bn1.bias[rows], True, 1.0, bn1.eps)
+        n = h.numel() // h.shape[1]
+        with torch.no_grad():  # as layers.BatchNorm updates its running statistics
+            bn1.running_mean[rows] = bn1.running_mean[rows] * layers.FLAX_MOMENTUM + mean * bn1.momentum
+            bn1.running_var[rows] = bn1.running_var[rows] * layers.FLAX_MOMENTUM + var * ((n - 1) / n) * bn1.momentum
+        return y
+
+    def forward(roi_features):
+        b, n = roi_features.shape[:2]
+        x = roi_features.reshape(b * n, -1)
+        dtype, f, total = x.dtype, fc1.weight.shape[0] // k, None
+        for m in range(k):
+            rows = slice(m * f, (m + 1) * f)
+            h = head.act(block_batch_norm(F.linear(x, fc1.weight[rows].to(dtype), fc1.bias[rows].to(dtype)), rows))
+            part = F.linear(h.to(torch.float32), fc2.weight[:, rows].to(dtype).to(torch.float32))
+            total = part if total is None else total + part
+        x = head.act(head.mrcnn_class_bn2((total + fc2.bias).to(dtype)))
+        logits = head.mrcnn_class_logits(x).reshape(b, n, head.num_classes).to(torch.float32)
+        deltas = head.mrcnn_bbox_fc(x).reshape(b, n, head.num_classes, 4).to(torch.float32)
+        return logits, torch.softmax(logits, dim=-1), deltas
+
+    return forward
+
+
+def tp_emulate(cfg, device, batch, draws, whole_sd, whole_mu):
+    """The first gspmd step's whole update against one process's
+    ``make_train_step`` on the same seeded state, global batch and draws,
+    its classifier computing the split head's arithmetic
+    (``split_head_forward``), by phase 16's rule: each first adamax moment
+    within 1e-4 * (max |emulated leaf| + the step's largest |emulated
+    moment|), the parameters within 1e-3 * lr where |g| >= 1e-4, the
+    running statistics within 1e-5 of max(1, |stat|)."""
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+    head = state.model.classifier
+    head.forward = split_head_forward(head, TP_SHARDS)
+    names = [n for n, _ in state.model.named_parameters()]
+    state, _ = make_train_step(cfg)(state, batch, draws=draws)
+    mu = dict(zip(names, state.opt_state.slots["mu"]))
+    mu_max = max(float(m.abs().max()) for m in mu.values())
+    sd, lr = state.model.state_dict(), cfg.learning_rate
+    mu_err, err_big, mu_equal, equal, over = 0.0, 0.0, 0, 0, []
+    for i, name in enumerate(names):
+        m, q = mu[name], whole_mu[i]
+        d = float((m - q).abs().max())
+        budget = 1e-4 * (float(m.abs().max()) + mu_max)
+        if not d <= budget:
+            over.append(f"{name} {d:.3g} ({d / budget:.2f} budgets)")
+        mu_err, mu_equal = max(mu_err, d), mu_equal + int(bool(torch.equal(m, q)))
+        diff = (sd[name] - whole_sd[name]).abs()
+        big = (m / 0.1).abs() >= 1e-4
+        if bool(big.any()):
+            err_big = max(err_big, float(diff[big].max()))
+        equal += int(bool(torch.equal(sd[name], whole_sd[name])))
+    stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    stat_err = max(float((sd[k] - whole_sd[k]).abs().max()) for k in stats)
+    stat_max = max(1.0, max(float(sd[k].abs().max()) for k in stats))
+    if over or err_big > 1e-3 * lr or stat_err > 1e-5 * stat_max:
+        raise AssertionError(f"gspmd vs one process: first moments off {over}; parameters {err_big} where "
+                             f"|grad| >= 1e-4 (lr {lr}), statistics {stat_err}")
+    return dict(mu_err=mu_err, mu_max=mu_max, mu_equal=mu_equal, err_big=err_big, equal=equal, n=len(names),
+                stat_err=stat_err)
+
+
+def tp_steps(rank, cfg, device, mesh, steps, calls=None, hold=False):
+    """Phase 19(a)/(b) on one rank: ``steps`` gspmd steps of the flagship
+    from the seed on the rank's rows of a synthetic global batch of 2. After
+    every step: launches exactly (1, 2, 2) on this rank, finite losses, the
+    replicated leaves bit-identical over the world and each shard over its
+    data group (``check_replicated``), and FC1's input (the pooled ROI
+    features) bit-identical over the model group. With ``calls`` the first
+    step records the kernel wrappers' inputs; with ``hold`` rank 0 holds the
+    first update against one process (``tp_emulate``)."""
+    gbatch = synthetic_batch(cfg, cfg.batch_size, SEED + 16, device)
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+    step, state = gspmd.make_gspmd_train_step(cfg, mesh, state)
+    batch = gspmd.shard_global_batch(gbatch, mesh, cfg)
+    head = state.model.classifier
+    shapes = (tuple(head.mrcnn_class_conv1.weight.shape), tuple(head.mrcnn_class_conv2.weight.shape))
+    fc, pooled = cfg.fpn_cls_fc_layers_size, cfg.pool_size ** 2 * cfg.top_down_pyramid_size
+    if shapes != ((fc // TP_SHARDS, pooled), (fc, fc // TP_SHARDS)):
+        raise AssertionError(f"rank {rank}: FC shard shapes {shapes}")
+    fc1_in = []
+    hook = head.mrcnn_class_conv1.register_forward_pre_hook(lambda mod, args: fc1_in.append(bits_checksum(args[0])))
+    zero_launch_counts()
+    times, first = [], None
+    try:
+        for i in range(steps):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with recorded_wrappers(calls) if calls is not None and i == 0 else contextlib.nullcontext():
+                state, losses = step(state, batch, rng=step_generator(SEED, i, mesh.data_rank))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            rose = tuple(a - b for a, b in zip(launch_counts(), before))
+            values = {k: float(v) for k, v in losses.items()}
+            if rose != (1, 2, 2) or not all(np.isfinite(v) for v in values.values()) or values["grad_finite"] != 1:
+                raise AssertionError(f"rank {rank} gspmd step {i}: launches {rose}, losses {values}")
+            check_replicated(state.model, None, f"the state after gspmd step {i}", mesh=mesh)
+            check_equal_over(fc1_in[-1], mesh.model_group, f"FC1's input in step {i}")
+            if i == 0 and hold:  # copies: the replicated entries are the live model's tensors
+                sd, slots = gspmd.gather_state_dict(state, mesh)
+                first = ({k: v.clone() for k, v in sd.items()}, {"mu": [t.clone() for t in slots["mu"]]})
+    finally:
+        hook.remove()
+    out = dict(times=times, loss=values["loss_sum"], launches=launch_counts(), shapes=shapes)
+    if hold and rank == 0:
+        del state
+        out["emulation"] = tp_emulate(cfg, device, gbatch, tp_draws(cfg, mesh, 0, device), first[0],
+                                      first[1]["mu"])
+    return out
+
+
+def tp_first_update(rank, cfg, device, mesh):
+    """Phase 19(b)'s hold of the first update: one gspmd step in float32
+    (TF32 off) with the batch norms on their running averages, from the
+    seed, gathered whole, and on rank 0 held against one process
+    (``tp_emulate``). With batch statistics over the data group the ranks
+    sum each statistic in another order than one process does, and at
+    random weights the backbone's gradients amplify a float32 rounding of
+    the statistics past the rule (as ``tests/test_torch_port_gspmd.py``
+    finds on the CPU); on running averages the two differ by summation order
+    alone."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gbatch = synthetic_batch(cfg, cfg.batch_size, SEED + 16, device)
+        state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+        step, state = gspmd.make_gspmd_train_step(cfg, mesh, state)
+        state, _ = step(state, gspmd.shard_global_batch(gbatch, mesh, cfg),
+                        rng=step_generator(SEED, 0, mesh.data_rank))
+        whole_sd, slots = gspmd.gather_state_dict(state, mesh)
+        del state
+        if rank != 0:
+            return None
+        return tp_emulate(cfg, device, gbatch, tp_draws(cfg, mesh, 0, device), whole_sd, slots["mu"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def tp_train_model(rank, device, root):
+    """Phase 19(c) on one rank: ``train_model`` in gspmd mode under the two
+    ranks on phase 10's COCO directory, 1 epoch of 3 steps with validation:
+    launches exact, rank 0 alone writes, and the checkpoint is whole."""
+    train, val = CocoDataset(), CocoDataset()
+    train.load_coco(os.path.join(root, "coco"), "train")
+    val.load_coco(os.path.join(root, "coco"), "val")
+    train.prepare()
+    val.prepare()
+    cfg = tp_train_model_config(train, root)
+    writes = []
+    save = ckpt_lib.CheckpointManager.save
+
+    def counted_save(self, step, *args):
+        writes.append(step)
+        return save(self, step, *args)
+
+    history = []
+    with mock.patch.object(ckpt_lib.CheckpointManager, "save", counted_save):
+        zero_launch_counts()
+        state = train_model(cfg, train, val, steps_per_epoch=3, rng_seed=SEED, device=device, history=history,
+                            checkpoint_base=os.path.join(root, "tp_main"))
+        launches = launch_counts()
+    eval_steps = len(val) // cfg.batch_size
+    want = (3 + eval_steps, 6 + 2 * eval_steps, 6)
+    if state.step != 3 or launches != want or not all(np.isfinite(v) for k, v in history[0].items() if "loss" in k):
+        raise AssertionError(f"rank {rank}: gspmd train_model step {state.step}, launches {launches} (want {want}), "
+                             f"{history}")
+    if writes != ([0] if rank == 0 else []) or gspmd.mesh_of(state.model).n_model != TP_SHARDS:
+        raise AssertionError(f"rank {rank}: checkpoint writes {writes}")
+    return dict(launches=launches, val_loss=history[0]["val_loss_sum"], eval_steps=eval_steps)
+
+
+def tp_train_model_config(train, root):
+    return tp_config().replace(num_classes=train.num_classes, epochs=1, log_per_steps=1,
+                               sample_cache_dir=os.path.join(root, "tp_cache"),
+                               checkpoints_dir=os.path.join(root, "tp_ckpt"))
+
+
+def tp_rank(rank, size, init_method, root, n_data, steps):
+    """Phase 19(a) and (c) (``n_data`` 1) or (b) (``n_data`` 2) on one of the
+    gloo ranks that share the card."""
+    device = torch.device("cuda:0")
+    torch.cuda.set_device(device)
+    distributed.initialize("gloo", rank, size, init_method, timeout_s=300, device=device)
+    mesh = make_mesh_2d(n_data, TP_SHARDS)
+    start = time.perf_counter()
+    cfg = tp_config()
+    calls = {"nms": [], "roi_align": [], "roi_align_backward": []} if rank == 0 and n_data == 1 else None
+    out = dict(rank=rank, coords=(mesh.data_rank, mesh.model_rank))
+    out["steps"] = tp_steps(rank, cfg, device, mesh, steps, calls, hold=n_data == 1)
+    torch.cuda.empty_cache()
+    if n_data > 1:
+        out["steps"]["emulation"] = tp_first_update(
+            rank, cfg.replace(compute_dtype="float32", train_bn=False, train_bn_backbone=False), device, mesh)
+    rows = cfg.batch_size // n_data * cfg.train_rois_per_image
+    shapes = {"fc2_partial": (rows, cfg.fpn_cls_fc_layers_size),
+              "fc1_input_cotangent": (rows, cfg.pool_size ** 2 * cfg.top_down_pyramid_size)}
+    out["all_reduce"] = {k: (int(np.prod(v)) * 4, group_all_reduce_ms(v, mesh.model_group, device))
+                         for k, v in shapes.items()}
+    if calls is not None:
+        out["holds"] = hold_dp_calls(calls, device, f"tensor-parallel inputs (rank 0 of DP1xTP{TP_SHARDS})")
+    del calls
+    torch.cuda.empty_cache()
+    if n_data == 1:
+        out["train_model"] = tp_train_model(rank, device, root)
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+def single_step_ms(device, steps=3):
+    """Median ms of the flagship's single-process training step (steps 2 on)."""
+    cfg = flagship_train_config()
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+    step, batch, times = make_train_step(cfg), synthetic_batch(cfg, 2, SEED + 16, device), []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, _ = step(state, batch, rng=step_generator(SEED, i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def serve_one_from_checkpoint(device, root, requests):
+    """Phase 19(c), after the ranks: their whole checkpoint restored into one
+    process's state, served through ``Predictor`` (2/2 launches)."""
+    train = CocoDataset()
+    train.load_coco(os.path.join(root, "coco"), "train")
+    train.prepare()
+    cfg = tp_train_model_config(train, root)
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED + 1), device=device)
+    manager = ckpt_lib.make_manager(cfg, os.path.join(root, "tp_main"))
+    state, start, _ = ckpt_lib.restore(manager, state)
+    head = state.model.classifier
+    if start != 1 or state.step != 3 or head.tp is not None or \
+            tuple(head.mrcnn_class_conv1.weight.shape) != (cfg.fpn_cls_fc_layers_size, 12544):
+        raise AssertionError(f"the gspmd checkpoint in one process: epoch {start}, step {state.step}, FC1 "
+                             f"{tuple(head.mrcnn_class_conv1.weight.shape)}")
+    predictor = Predictor(cfg.replace(detection_min_confidence=0.0), state.model.state_dict(), device=device)
+    zero_launch_counts()
+    results = predictor.detect(requests[0])
+    check_results(results, requests[0], cfg)
+    if launch_counts()[:2] != (2, 2):
+        raise AssertionError(f"serving the restored checkpoint launched {launch_counts()}")
+    return [len(r["class_ids"]) for r in results]
+
+
+def host_forward_ms(fn, reps=5):
+    """Median ms of ``fn()`` on the host clock, the card synchronized around
+    each, after 2 warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times))
+
+
+def dp_serving(device, card, requests, int8_state):
+    """Phase 19(d): ``Predictor(data_parallel=True)`` with two replicas on
+    the card against the single predictor; ``detect_stream`` through it;
+    one int8 request."""
+    cfg = flagship_config()
+    sd = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+    single = Predictor(cfg, sd, device=device)
+    dp = Predictor(cfg, sd, data_parallel=True, devices=["cuda:0", "cuda:0"])
+    if dp.num_devices != 2:
+        raise AssertionError(f"the data-parallel predictor has {dp.num_devices} replicas")
+    batches = [(m.numpy(), me.numpy()) for m, me in request_batches(requests, cfg)]
+    stats, per_request = [], []
+    zero_launch_counts()
+    with torch.no_grad():
+        for molded, metas in batches:
+            before = launch_counts()
+            det, masks = (t.float().cpu().numpy() for t in dp._forward(molded, metas))
+            per_request.append(tuple(a - b for a, b in zip(launch_counts(), before))[:2])
+            # the single predictor on each replica's rows: cuDNN picks its algorithms by batch size, and
+            # at seeded random weights a bf16 rounding reorders near-tied detections
+            ref = [single._forward(molded[i:i + 1], metas[i:i + 1]) for i in range(len(molded))]
+            ref_det, ref_masks = (torch.cat([r[k] for r in ref]).float().cpu().numpy() for k in range(2))
+            stats.append(agreement(det, masks, ref_det, ref_masks))
+    if any(p != (4, 4) for p in per_request):
+        raise AssertionError(f"(NMS, ROIAlign) launches a request of 2 replicas: {per_request}; want (4, 4)")
+    mean = {k: float(np.mean([s[k] for s in stats])) for k in stats[0]}
+    if not (mean["matched"] >= ENGINE_MATCH_FLOOR and mean["all_slot_classes"] >= CROSS_MIN_CLASSES):
+        raise AssertionError(f"the data-parallel predictor against the single one: {mean}")
+    images = [im for req in requests for im in req]
+    stream = list(dp.detect_stream(iter(images), batch_size=2))
+    want = [r for req in requests for r in dp.detect(req)]
+    for a, b in zip(stream, want):
+        if not (np.array_equal(a["class_ids"], b["class_ids"]) and np.allclose(a["rois"], b["rois"], atol=1e-4)
+                and np.allclose(a["scores"], b["scores"], atol=1e-4)):
+            raise AssertionError("detect_stream through the data-parallel predictor differs from detect")
+    if len(stream) != len(images):
+        raise AssertionError(f"detect_stream returned {len(stream)} results for {len(images)} images")
+    molded, metas = batches[0]
+    ms = {"dp": host_forward_ms(lambda: dp._forward(molded, metas)),
+          "single": host_forward_ms(lambda: single._forward(molded, metas))}
+    del single, dp
+    qcfg, qstate = int8_state
+    dpq = Predictor(qcfg, qstate, data_parallel=True, devices=["cuda:0", "cuda:0"])
+    zero_launch_counts()
+    int8_kernel.int8_conv.launches = 0
+    check_results(dpq.detect(requests[0]), requests[0], qcfg)
+    int8_launches = launch_counts()[:2] + (int8_kernel.int8_conv.launches,)
+    if int8_launches != (4, 4, 130):
+        raise AssertionError(f"one int8 request through 2 replicas launched (NMS, ROIAlign, K7) {int8_launches}; "
+                             f"want (4, 4, 130)")
+    log(f"  (d) Predictor(data_parallel=True, devices=['cuda:0', 'cuda:0']), replicas sharing one card (no scaling "
+        f"number): 4 requests of 2 images, (NMS, ROIAlign) launches {per_request[0]} a request (2, 2 a replica), "
+        f"against the single predictor on each replica's rows, per request (its valid detections, the share "
+        f"matched at the same class and IoU >= 0.9, class ids equal over all slots; held >= "
+        f"{ENGINE_MATCH_FLOOR}, {CROSS_MIN_CLASSES}): "
+        f"{[[s['valid'], round(s['matched'], 3), round(s['all_slot_classes'], 3)] for s in stats]}; "
+        f"detect_stream equal to detect over {len(images)} images; one int8 request: (NMS, ROIAlign, K7) "
+        f"{int8_launches} (65 K7 a replica)")
+    log(f"  (d) forward of a request of 2 images (host clock, median of 5): data-parallel predictor "
+        f"{ms['dp']:.2f} ms, single {ms['single']:.2f} ms, replicas sharing one card: no scaling number ({card})")
+    return dict(launches=(4 * per_request[0][0], 4 * per_request[0][1]), int8=int8_launches, ms=ms, agreement=mean)
+
+
+def run_tensor_parallel(device, card, root, requests, int8_state):
+    """Phase 19 (see the module's docstring). Returns the phase's launches
+    and times for the kernels' line."""
+    start_phase = time.perf_counter()
+    log("== tensor parallel and data-parallel serving (parallel/gspmd.py, Predictor(data_parallel=True)): gloo "
+        "ranks and replicas sharing one card")
+    single_ms = single_step_ms(device)
+    torch.cuda.empty_cache()
+    one = multihost_dryrun.launch(tp_rank, TP_SHARDS, (root, 1, 3), timeout_s=600, num_threads=4)
+    two = multihost_dryrun.launch(tp_rank, 2 * TP_SHARDS, (root, 2, 2), timeout_s=600, num_threads=2)
+    for name, out in (("DP1xTP2", one), ("DP2xTP2", two)):
+        st = [o["steps"] for o in out]
+        e = st[0]["emulation"]
+        if len({s["loss"] for s in st}) != 1:
+            raise AssertionError(f"{name}: the ranks' losses differ: {[s['loss'] for s in st]}")
+        ar = out[0]["all_reduce"]
+        log(f"  ({'a' if name == 'DP1xTP2' else 'b'}) {name}, ranks sharing one card (no scaling number): "
+            f"{len(st[0]['times'])} steps on each of {len(out)} ranks, launches (1, 2, 2) a step on each, FC shards "
+            f"{st[0]['shapes']}, replicated leaves bit-identical over the world and shards over their data group "
+            f"after every step, FC1's input bit-identical over each model group; the first update "
+            f"{'of the first step' if name == 'DP1xTP2' else 'of a float32 step on running averages (TF32 off)'} "
+            f"gathered against one process's make_train_step with the split head's arithmetic: moments within "
+            f"{e['mu_err']:.3g} (held per leaf <= 1e-4 (leaf max + "
+            f"step max {e['mu_max']:.3g})), {e['mu_equal']} of {e['n']} bit-equal; parameters within "
+            f"{e['err_big']:.3g} where |grad| >= 1e-4 (held <= 1e-3 lr), {e['equal']} of {e['n']} bit-equal; "
+            f"statistics {e['stat_err']:.3g}")
+        log(f"  ({'a' if name == 'DP1xTP2' else 'b'}) {name} step ms by rank "
+            f"{[[round(t, 1) for t in s['times']] for s in st]}; single-process step in this call {single_ms:.1f} "
+            f"ms; model-group all-reduces a step (float32, ranks sharing one card): FC2's partial output "
+            f"{ar['fc2_partial'][0] / 2**20:.2f} MiB {ar['fc2_partial'][1]:.2f} ms, FC1's input cotangent "
+            f"{ar['fc1_input_cotangent'][0] / 2**20:.2f} MiB {ar['fc1_input_cotangent'][1]:.2f} ms ({card})")
+    tm = [o["train_model"] for o in one]
+    served = serve_one_from_checkpoint(device, root, requests)
+    log(f"  (c) train_model in gspmd mode under DP1xTP2 on phase 10's COCO directory: 1 epoch of 3 steps and "
+        f"{tm[0]['eval_steps']} eval steps, launches {tm[0]['launches']} on each rank, val_loss_sum "
+        f"{tm[0]['val_loss']:.4f}, rank 0 alone wrote the whole checkpoint; restored into one process and served "
+        f"one request: detections {served}, launches (2, 2)")
+    torch.cuda.empty_cache()
+    dp = dp_serving(device, card, requests, int8_state)
+    log(f"  the ranks' processes took {max(o['seconds'] for o in one):.1f} s (DP1xTP2) and "
+        f"{max(o['seconds'] for o in two):.1f} s (DP2xTP2)")
+    log(f"== tensor parallel phase done in {time.perf_counter() - start_phase:.1f} s")
+    holds = one[0]["holds"]
+    names = ("nms", "roi_align", "roi_align_backward")
+    out = {name: dict(tensor_parallel_launches=n, tensor_parallel_train_model_launches=m,
+                      tensor_parallel_ms=holds[name]["ms"], tensor_parallel_bound_ms=holds[name]["bound_ms"])
+           for name, n, m in zip(names, one[0]["steps"]["launches"], tm[0]["launches"])}
+    for name, n in zip(names[:2], dp["launches"]):
+        out[name]["data_parallel_serving_launches"] = n
+    out["int8_conv"] = dict(data_parallel_serving_launches=dp["int8"][2])
+    return out
+
+
+def tensor_parallel_only(device, card, requests) -> None:
+    """``--only tensor-parallel``: phase 19 alone, with its own COCO directory
+    and int8 calibration (a quicker check of that path while it changes; the
+    kernels' line and the last line are not printed)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        shapes_datasets(os.path.join(root, "coco"))
+        cfg = flagship_config()
+        state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
+        int8_state = quantize_for_inference(cfg, state, list(request_batches(requests, cfg)), device=device)
+        run_tensor_parallel(device, card, root, requests, int8_state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    if only not in (None, "tensor-parallel"):
+        raise SystemExit(f"chip_smoke: --only {only}: the one phase that runs alone is tensor-parallel")
     device = torch.device("cuda")
     t0 = time.time()
     card = card_line()
@@ -2672,6 +3176,11 @@ def main() -> None:
     for name, out in logs.items():
         log(f"== build {name}.cu:\n" + "\n".join("  " + ln for ln in out.strip().splitlines()))
     log(f"== build done at {time.time() - t0:.1f} s (into {_build.BUILD_DIR})")
+    if only:
+        rs = np.random.RandomState(SEED)
+        tensor_parallel_only(device, card, [[smooth_image(rs, *hw) for hw in pair] for pair in REQUEST_SIZES])
+        log(f"== done at {time.time() - t0:.1f} s")
+        return
 
     cfg = flagship_config()
     model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED))
@@ -2752,17 +3261,20 @@ def main() -> None:
         int8_state, k7 = run_int8(device, card, requests, flush, root)
         torch.cuda.empty_cache()
         engines = run_engine(device, card, requests, int8_state, root)
+        torch.cuda.empty_cache()
+        tp = run_tensor_parallel(device, card, root, requests, int8_state)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],
                     "pretrained_launches": pretrained_launches[name], "zoo_launches": zoo_launches[name],
-                    "train_cli_launches": cli_launches[name], **dp[name]}
+                    "train_cli_launches": cli_launches[name], **dp[name], **tp[name]}
              for i, name in enumerate(("nms", "roi_align", "roi_align_backward"))}
 
     for i, name in enumerate(("nms", "roi_align")):
         extra[name].update(engine_launches=engines["bf16"]["launches"][i],
                            int8_engine_launches=engines["int8"]["launches"][i])
     k7["engine_launches"] = engines["int8"]["launches"][2]
+    k7.update(tp["int8_conv"])
     k7["engine_forward_ms"] = {f"{name}_{kind}": engines[name][f"{kind}_ms"] for name in ("bf16", "int8")
                                for kind in ("engine", "eager")}
     kernels = [
@@ -2800,7 +3312,10 @@ def main() -> None:
         f"bound: rank 0's first data-parallel step (one image a rank, both call sites summed); int8_conv: ms, "
         f"plain_ms, bound_ms and library_ms summed over the 65 sites of one int8 request of 2 images, launches "
         f"the 4 int8 requests'; engine_launches and int8_engine_launches: the 4 requests through the bf16 and the "
-        f"int8 flagship engine, each in a fresh process")
+        f"int8 flagship engine, each in a fresh process; tensor_parallel_launches: rank 0's in 3 DP1xTP2 steps, "
+        f"tensor_parallel_ms and its bound: rank 0's first DP1xTP2 step; tensor_parallel_train_model_launches: "
+        f"rank 0's in train_model under DP1xTP2 (3 steps, 2 eval steps); data_parallel_serving_launches: the 4 "
+        f"requests through two replicas (K7: one int8 request)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

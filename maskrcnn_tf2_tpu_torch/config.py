@@ -5,8 +5,9 @@ imports nothing of the JAX package: the same frozen dataclass, the same knob
 names and defaults, ``to_dict``/``from_dict`` and the derived quantities. A
 dict written by either package builds the same configuration in the other.
 Knobs that only steer a TPU rewrite (``proposal_approx_topk``,
-``rpn_slim_inference``, the mesh and parallel fields) are kept for that round
-trip; the port's inference path reads none of them. ``quant_mode``,
+``rpn_slim_inference``, the mesh axis names) are kept for that round trip;
+the port's inference path reads none of them. ``parallel_mode="gspmd"`` and
+``tp_shards`` steer the training loop (``parallel/gspmd.py``). ``quant_mode``,
 ``quant_classifier`` and ``quant_mask_head`` build the int8 model
 (``models/quant.py``), as in the JAX package.
 """
@@ -140,6 +141,8 @@ class MaskRCNNConfig:
     compute_dtype: str = "bfloat16"  # activations dtype on the card
     mesh_data_axis: str = "data"
     mesh_model_axis: str = "model"
+    # "gspmd": data parallelism with the classifier head's two FCs split over
+    # tp_shards ranks of a (data, model) layout (parallel/gspmd.py)
     parallel_mode: str = "shard_map"
     tp_shards: int = 1
     quant_mode: str = "off"
@@ -164,9 +167,17 @@ class MaskRCNNConfig:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.quant_mode not in ("off", "calib", "int8"):
             raise ValueError(f"quant_mode {self.quant_mode!r}: off, calib or int8")
-        if self.parallel_mode != "shard_map" or self.tp_shards != 1:
-            raise ValueError("parallel_mode='gspmd' and tp_shards > 1 (tensor parallelism of the classifier FCs) "
-                             "are not in the port yet (ROADMAP A.6b): use parallel_mode='shard_map', tp_shards=1")
+        if self.parallel_mode not in ("shard_map", "gspmd"):
+            raise ValueError(f"parallel_mode {self.parallel_mode!r}: shard_map or gspmd")
+        if self.tp_shards < 1:
+            raise ValueError(f"tp_shards {self.tp_shards}: at least 1")
+        if self.tp_shards > 1:
+            if self.parallel_mode != "gspmd":
+                raise ValueError("tensor parallelism of the classifier FCs (tp_shards > 1) is the gspmd mode's "
+                                 "(parallel/gspmd.py): set parallel_mode='gspmd'")
+            if self.fpn_cls_fc_layers_size % self.tp_shards:
+                raise ValueError(f"fpn_cls_fc_layers_size {self.fpn_cls_fc_layers_size} does not split into "
+                                 f"{self.tp_shards} shards")
 
     # ---- derived quantities ----
     @property

@@ -119,6 +119,17 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """``wrapper.launches += 1`` under a lock: a data-parallel predictor's
+    replicas launch the kernels from threads of their own, and a bare
+    increment there can lose a count."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if status != 0:

@@ -288,7 +288,7 @@ def _launch(p: Plan, x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor, sw: tor
             stream,
         )
     _build.check(lib, status, "int8_conv")
-    int8_conv.launches += 1
+    _build.count_launch(int8_conv)
     int8_conv.last_path = p.kernel
     int8_conv.last_plan = p
     return y

@@ -180,7 +180,7 @@ def _(boxes_s, valid_s, iou_threshold, limit):
             torch.cuda.current_stream(boxes_s.device).cuda_stream,
         )
     _build.check(lib, status, "greedy_nms")
-    greedy_nms.launches += 1
+    _build.count_launch(greedy_nms)
     return positions, out_valid
 
 

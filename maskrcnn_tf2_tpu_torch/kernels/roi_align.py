@@ -233,7 +233,7 @@ def _(features, boxes, pool_size, image_shape, denominator):
             torch.cuda.current_stream(boxes.device).cuda_stream,
         )
     _build.check(lib, status, "roi_align")
-    roi_align.launches += 1
+    _build.count_launch(roi_align)
     return out
 
 
@@ -354,7 +354,7 @@ def _(dout, boxes, level_hw, image_shape, denominator):
             torch.cuda.current_stream(boxes.device).cuda_stream,
         )
     _build.check(lib, status, "roi_align_backward")
-    roi_align_backward.launches += 1
+    _build.count_launch(roi_align_backward)
     return out
 
 

@@ -27,6 +27,11 @@ pmean(E[x**2])`` (one all-reduce of both, in float32 over the input),
 all-reduces the cotangent (psum's transpose is psum), so each rank's input
 gradient holds every rank's loss. ``sync_batch_norms_`` gives a module's
 batch norms the group.
+
+Tensor parallelism (``parallel/gspmd.py``): ``copy_to_model_group`` before a
+column-parallel layer and ``reduce_from_model_group`` after a row-parallel
+one carry the model group's two collectives, each differentiable the way its
+place needs.
 """
 
 from __future__ import annotations
@@ -112,6 +117,54 @@ class _AllReduceSum(torch.autograd.Function):
         g = g.contiguous().clone()
         tdist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, reduced in float32 (gloo
+    reduces no bfloat16 on a card), returned as float32."""
+    y = x.detach().to(torch.float32).contiguous().clone()
+    tdist.all_reduce(y, group=group)
+    return y
+
+
+class _CopyToModelGroup(torch.autograd.Function):
+    """Tensor parallelism's entry (Megatron's ``f``): identity forward; the
+    backward sums the cotangent over the model group, since each rank's
+    column shard of the next layer sees only its part of the input's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _sum_over(g, ctx.group).to(g.dtype), None
+
+
+class _ReduceFromModelGroup(torch.autograd.Function):
+    """Tensor parallelism's exit (Megatron's ``g``): the partial products of
+    a row-parallel layer summed over the model group (float32); the backward
+    passes the cotangent on unchanged, since every rank uses the sum whole.
+    ``_AllReduceSum`` would sum the cotangent again: k times the gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.dtype = x.dtype
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.to(ctx.dtype), None
+
+
+def copy_to_model_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToModelGroup.apply(x, group)
+
+
+def reduce_from_model_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromModelGroup.apply(x, group)
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):

@@ -5,17 +5,71 @@ Where the JAX package places a batch on a device mesh and shards it along the
 group explicitly (``train_step.make_train_step(config, group)``). Every rank
 builds the same state from the same seed, as the JAX package's hosts do, and
 ``check_replicated`` proves it with one all-reduce.
+
+``Mesh2D`` (``make_mesh_2d``, the counterpart of the JAX package's
+``parallel/gspmd.py::make_mesh_2d``) lays ranks out as ``(data, model)``
+for tensor parallelism: an explicit value, passed on to whatever needs it.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from dataclasses import dataclass
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.distributed as tdist
 from torch import nn
 
 from maskrcnn_tf2_tpu_torch.parallel import distributed
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """This rank's place in a ``(data, model)`` layout of ranks and the
+    process groups of its row and column: ``model_group`` holds the
+    ``n_model`` ranks that share one data shard and split the classifier
+    head; ``data_group`` the ``n_data`` ranks that hold the same head shard
+    on different data. ``world`` spans the whole layout."""
+
+    world: object
+    data_group: object
+    model_group: object
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+
+
+def make_mesh_2d(n_data: int, n_model: int, group=None) -> Optional[Mesh2D]:
+    """Lay the first ``n_data * n_model`` ranks of ``group`` (default: the
+    world) out as JAX reshapes its devices: rank ``r`` has model index ``r %
+    n_model`` and data index ``r // n_model``, so a model group is
+    consecutive ranks (the NVLink neighbours on a host of several cards).
+
+    Every rank of the world calls it, and creates every subgroup in the same
+    order, as ``torch.distributed.new_group`` requires; a rank outside the
+    layout gets None. ``group`` must span the world."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh")
+    if not tdist.is_initialized():
+        raise RuntimeError("make_mesh_2d needs an initialized process group (parallel.distributed.initialize)")
+    world_ranks = list(range(tdist.get_world_size()))
+    ranks = world_ranks if group is None else tdist.get_process_group_ranks(group)
+    if ranks != world_ranks:
+        raise ValueError("make_mesh_2d lays out the world's ranks: every rank of the world creates the subgroups")
+    size = n_data * n_model
+    if size > len(ranks):
+        raise ValueError(f"a ({n_data}, {n_model}) mesh needs {size} ranks; the group has {len(ranks)}")
+    ranks = ranks[:size]
+    me = tdist.get_rank()
+    world = tdist.new_group(ranks) if size < len(world_ranks) else (group or tdist.group.WORLD)
+    data_groups = [tdist.new_group(ranks[m::n_model]) for m in range(n_model)]
+    model_groups = [tdist.new_group(ranks[d * n_model:(d + 1) * n_model]) for d in range(n_data)]
+    if me not in ranks:
+        return None
+    i = ranks.index(me)
+    d, m = divmod(i, n_model)
+    return Mesh2D(world, data_groups[m], model_groups[d], n_data, n_model, d, m)
 
 
 def shard_batch(global_batch: Mapping[str, torch.Tensor], rank: int, size: int) -> dict:
@@ -33,23 +87,25 @@ def shard_batch(global_batch: Mapping[str, torch.Tensor], rank: int, size: int) 
 _BITS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
 
 
-def state_checksum(model: nn.Module) -> torch.Tensor:
-    """Two int64 sums of the raw bits of each tensor of the state dict: of
-    the words, and of the words weighted by their position (mod 65521), so
-    that a flipped bit or two swapped elements change it."""
+def state_checksum(model: nn.Module, select: Optional[Callable[[str], bool]] = None) -> torch.Tensor:
+    """Two int64 sums of the raw bits of each tensor of the state dict (those
+    whose name ``select`` accepts): of the words, and of the words weighted
+    by their position (mod 65521), so that a flipped bit or two swapped
+    elements change it."""
     sums = []
-    for t in model.state_dict().values():
+    for name, t in model.state_dict().items():
+        if select is not None and not select(name):
+            continue
         words = t.detach().reshape(-1).view(_BITS[t.element_size()]).to(torch.int64)
         weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
         sums += [words.sum(), (words * weights).sum()]
     return torch.stack(sums)
 
 
-def check_replicated(model: nn.Module, group, what: str = "state") -> None:
-    """Raise unless every rank of ``group`` holds the same state, bit for bit
-    (``state_checksum``): one MAX all-reduce of ``[checksum, -checksum]``
-    gives the largest and smallest value of each entry across ranks."""
-    c = state_checksum(model)
+def _check_equal(model: nn.Module, group, what: str, select=None) -> None:
+    c = state_checksum(model, select)
+    if not len(c):
+        return
     both = torch.cat([c, -c]).to(distributed.small_tensor_device(group, c.device))
     tdist.all_reduce(both, op=tdist.ReduceOp.MAX, group=group)
     hi, lo = both[: len(c)], -both[len(c):]
@@ -57,3 +113,20 @@ def check_replicated(model: nn.Module, group, what: str = "state") -> None:
     if differ:
         raise RuntimeError(f"{what} differs across the {distributed.world_size(group)} ranks "
                            f"in {differ} of {len(c)} checksum entries")
+
+
+def check_replicated(model: nn.Module, group, what: str = "state", mesh: Optional[Mesh2D] = None) -> None:
+    """Raise unless every rank of ``group`` holds the same state, bit for bit
+    (``state_checksum``): one MAX all-reduce of ``[checksum, -checksum]``
+    gives the largest and smallest value of each entry across ranks.
+
+    Under a ``mesh`` (tensor parallelism) a leaf is one of two classes: a
+    replicated leaf is equal on every rank of ``mesh.world``, a shard of the
+    classifier head (``parallel/gspmd.py``) on every rank of its data group."""
+    if mesh is None:
+        _check_equal(model, group, what)
+        return
+    from maskrcnn_tf2_tpu_torch.parallel.gspmd import shard_dim
+
+    _check_equal(model, mesh.world, what, lambda name: shard_dim(name) is None)
+    _check_equal(model, mesh.data_group, f"{what} (the head's shards)", lambda name: shard_dim(name) is not None)

@@ -1,18 +1,27 @@
 """High-level inference API: ``Predictor.detect`` and the pipelined
-``Predictor.detect_stream`` (counterpart of ``maskrcnn_tf2_tpu/predictor.py``;
-data-parallel serving is not ported yet).
+``Predictor.detect_stream`` (counterpart of ``maskrcnn_tf2_tpu/predictor.py``).
 
 Host preprocessing -> one batched forward on the device (uint8 images go up,
 normalization happens there) -> the class-mask gather on the device -> host
 unmold.
+
+Data-parallel serving (``data_parallel=True``): one replica of the model on
+each device of ``devices``, the batch padded to a multiple of the replicas
+(zero images, the last meta) and split into equal blocks of rows, each
+block's forward run on a long-lived worker thread of its own under its
+device (the eager forward blocks on the host several times a batch, so one
+thread could not keep several cards busy), the outputs put back in input order on the
+first replica's device. ``devices`` stands in for the JAX package's mesh of
+every visible device.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List, Mapping
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,20 +39,59 @@ class Predictor:
     int8 configuration serves with the calibrated ``state_dict`` that
     ``export.quantize.quantize_for_inference`` returns.
     ``device=None`` runs on the card and raises if there is none.
+
+    ``data_parallel=True`` serves on a replica per device of ``devices``
+    (default: ``[device]`` when ``device`` is given, else every visible card);
+    with one device it is the single-device predictor, as the JAX package's
+    is with one device. A model placed for tensor-parallel training is not
+    served: the state dict is the whole one (``train.checkpoint`` writes it).
     """
 
-    def __init__(self, config: MaskRCNNConfig, state_dict: Mapping[str, torch.Tensor], device: DeviceLike = None):
+    def __init__(self, config: MaskRCNNConfig, state_dict: Mapping[str, torch.Tensor], device: DeviceLike = None,
+                 data_parallel: bool = False, devices: Optional[Sequence[DeviceLike]] = None):
         self.config = config
-        self.model = MaskRCNN(config, device=device)
-        self.model.load_state_dict(state_dict)
-        self.model.cast_for_serving_()
+        if not data_parallel:
+            devices = [device]
+        elif devices is None:
+            devices = [device] if device is not None else [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        self.replicas = [self._replica(state_dict, d) for d in (devices or [None])]
+        self.model = self.replicas[0]
         self.device = self.model.device
+        # one long-lived thread a replica: a thread's first CUDA call sets up its cuBLAS and cuDNN handles
+        self._pool = ThreadPoolExecutor(max_workers=len(self.replicas)) if len(self.replicas) > 1 else None
+
+    def _replica(self, state_dict, device) -> MaskRCNN:
+        model = MaskRCNN(self.config, device=device)
+        model.load_state_dict(state_dict)
+        return model.cast_for_serving_()
+
+    @property
+    def num_devices(self) -> int:
+        return len(self.replicas)
 
     def _forward(self, molded: np.ndarray, metas: np.ndarray):
         """Detections ``[B, D, 6]`` and class masks ``[B, D, mh, mw]`` on the
-        device."""
-        out = self.model(torch.from_numpy(molded).to(self.device), torch.from_numpy(metas).to(self.device))
-        return out["detections"], gather_class_masks(out)
+        (first replica's) device."""
+        n = self.num_devices
+        if n == 1:
+            return self._replica_forward(self.model, molded, metas)
+        b = molded.shape[0]
+        pad = -b % n
+        if pad:
+            molded = np.concatenate([molded, np.zeros((pad,) + molded.shape[1:], molded.dtype)])
+            metas = np.concatenate([metas, np.repeat(metas[-1:], pad, 0)])
+        rows = (b + pad) // n
+        outs = list(self._pool.map(lambda i: self._replica_forward(self.replicas[i], molded[i * rows:(i + 1) * rows],
+                                                                   metas[i * rows:(i + 1) * rows]), range(n)))
+        return tuple(torch.cat([o[k].to(self.device) for o in outs])[:b] for k in range(2))
+
+    @staticmethod
+    def _replica_forward(model: MaskRCNN, molded: np.ndarray, metas: np.ndarray):
+        device = model.device
+        ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+        with ctx, torch.no_grad():  # the grad mode is per thread
+            out = model(torch.from_numpy(molded).to(device), torch.from_numpy(metas).to(device))
+            return out["detections"], gather_class_masks(out)
 
     def _unmold(self, detections, masks, metas, shapes) -> List[Dict[str, np.ndarray]]:
         return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])

@@ -15,7 +15,13 @@ checkpoints are not read.
 
 In a data-parallel run (``group``) the ranks hold the same state: only the
 primary rank writes, the others wait at a barrier until the file is there,
-and every rank restores the same file.
+and every rank restores the same file. A state placed on a tensor-parallel
+mesh (``parallel/gspmd.py``) holds a shard of the classifier head: every rank
+joins ``gather_state_dict``, and world rank 0 writes the WHOLE state, so a
+checkpoint never depends on the layout that wrote it. ``restore`` loads a
+whole state into any layout: into a placed state it loads the whole leaves,
+then slices them again (``place_state``), the counterpart of the JAX
+package's restore across topologies.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
-from maskrcnn_tf2_tpu_torch.parallel import distributed
+from maskrcnn_tf2_tpu_torch.parallel import distributed, gspmd
 from maskrcnn_tf2_tpu_torch.train.optimizer import OptState
 from maskrcnn_tf2_tpu_torch.train.train_step import TrainState
 
@@ -122,15 +128,22 @@ def pick_resume_manager(manager: CheckpointManager, preempt_manager: Optional[Ch
 def save(manager: CheckpointManager, state: TrainState, epoch: int, metrics: Dict, extra: Optional[Dict] = None,
          group=None):
     """Save ``state`` as epoch ``epoch``'s checkpoint, with ``extra`` (floats).
-    With ``group``, the primary rank writes and every rank returns after it."""
+    With ``group``, the primary rank writes and every rank returns after it.
+    A state placed on a mesh is gathered whole first, on every rank of the
+    mesh (``group`` is then its world)."""
+    model_sd, slots = state.model.state_dict(), state.opt_state.slots
+    mesh = gspmd.mesh_of(state.model)
+    if mesh is not None:
+        model_sd, slots = gspmd.gather_state_dict(state, mesh)
+        group = mesh.world
     if group is not None and not distributed.is_primary(group):
         distributed.barrier(f"checkpoint {epoch}", group)
         return
     opt = state.opt_state
     payload = {
         "step": int(state.step),
-        "model": state.model.state_dict(),
-        "opt_state": {"count": int(opt.count), "hyperparams": dict(opt.hyperparams), "slots": opt.slots},
+        "model": model_sd,
+        "opt_state": {"count": int(opt.count), "hyperparams": dict(opt.hyperparams), "slots": slots},
     }
     if extra:
         payload["extra"] = {k: float(v) for k, v in extra.items()}
@@ -148,14 +161,20 @@ def restore(
     """Load the latest (or the given) checkpoint into ``state``, on its
     model's device: ``(state, start_epoch, extra)``. Without a checkpoint,
     ``(state, 0, None)``; ``extra`` is None when ``extra_template`` is None
-    or the checkpoint has none."""
+    or the checkpoint has none. A state placed on a mesh is placed again
+    after the load (this rank's shards of the whole state)."""
     target = step if step is not None else manager.latest_step()
     if target is None:
         return state, 0, None
     payload = manager.restore(target, map_location=next(state.model.parameters()).device)
+    mesh = gspmd.mesh_of(state.model)
+    if mesh is not None:
+        gspmd.unplace_(state, state.model.config)
     state.model.load_state_dict(payload["model"])
     opt = payload["opt_state"]
     state.opt_state = OptState(opt["count"], dict(opt["hyperparams"]), opt["slots"])
     state.step = payload["step"]
+    if mesh is not None:
+        gspmd.place_state(state, mesh, state.model.config)
     extra = payload.get("extra") if extra_template is not None else None
     return state, int(target) + 1, extra

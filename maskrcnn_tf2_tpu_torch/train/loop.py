@@ -25,6 +25,16 @@ step's to keep its dispatch asynchronous: every rank stops after the same
 step. A flag raised during the epoch's last step is caught by one more
 all-reduce at the epoch's end.
 
+Tensor parallelism (JAX ``loop.py:143-170``): with ``parallel_mode="gspmd"``
+and a group of several ranks, the ranks form a ``(data, model)`` mesh of
+``tp_shards`` model ranks (``parallel/gspmd.py``); the state is built whole,
+restored whole, then placed. The loader shards by the data rank, the draws
+are seeded by it (a model group must draw the same ROIs), checkpoints are
+gathered whole, and the preemption flag and the validation losses are
+reduced over the world. With no group, or one rank, the loop trains on one
+device, as the JAX loop does with one device, and says so. A group that
+``tp_shards`` does not divide, or a batch its data ranks do not, raises.
+
 Randomness: the draws of the step at ``global_step`` come from a
 ``torch.Generator`` seeded by ``(rng_seed, global_step)``, and by the rank
 too on ranks other than 0 (``step_generator``, the counterpart of
@@ -47,8 +57,8 @@ import torch.distributed as tdist
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from maskrcnn_tf2_tpu_torch.device import DeviceLike
-from maskrcnn_tf2_tpu_torch.parallel import distributed
-from maskrcnn_tf2_tpu_torch.parallel.mesh import check_replicated
+from maskrcnn_tf2_tpu_torch.parallel import distributed, gspmd
+from maskrcnn_tf2_tpu_torch.parallel.mesh import check_replicated, make_mesh_2d
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
 from maskrcnn_tf2_tpu_torch.train.optimizer import set_learning_rate
 from maskrcnn_tf2_tpu_torch.train.train_step import TrainState, create_train_state, make_eval_step, make_train_step
@@ -88,8 +98,9 @@ class PlateauScheduler:
 
 
 def step_generator(rng_seed: int, global_step: int, rank: int = 0) -> torch.Generator:
-    """The generator of the step at ``global_step``'s draws on ``rank``;
-    rank 0 draws what a single process draws."""
+    """The generator of the step at ``global_step``'s draws on ``rank`` (the
+    data rank under tensor parallelism); rank 0 draws what a single process
+    draws."""
     entropy = [rng_seed, global_step] + ([rank] if rank else [])
     seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(seed))
@@ -137,8 +148,15 @@ def train_model(
     """
     if group is None and distributed.is_initialized():
         group = tdist.group.WORLD
+    mesh = None
+    if config.parallel_mode == "gspmd":
+        mesh = _gspmd_mesh(config, group)
+        if mesh is None:
+            print("gspmd with no process group of several ranks: training on one device")
+            group = None
     if state is None:
-        state = create_train_state(config, torch.Generator().manual_seed(rng_seed), device=device, group=group)
+        state = create_train_state(config, torch.Generator().manual_seed(rng_seed), device=device,
+                                   group=None if mesh is not None else group)
     device = next(state.model.parameters()).device
     sched = PlateauScheduler(config.reduce_lr_factor, config.reduce_lr_patience, config.learning_rate)
     manager = ckpt_lib.make_manager(config, checkpoint_base)
@@ -150,11 +168,14 @@ def train_model(
         if extra is not None:
             sched.load_state_dict(extra)
             state.opt_state = set_learning_rate(state.opt_state, sched.lr)
+    if mesh is not None and gspmd.mesh_of(state.model) is None:
+        gspmd.place_state(state, mesh, config)
     if group is not None:
         distributed.barrier("train_model state", group)
-        check_replicated(state.model, group, "the initial state")
+        check_replicated(state.model, group, "the initial state", mesh=mesh)
+    data_rank, data_count = _data_shard(group, mesh)
     train_loader = DataLoader(train_dataset, config, shuffle=True, augment_fn=augment_fn,
-                              process_index=distributed.rank(group), process_count=distributed.world_size(group))
+                              process_index=data_rank, process_count=data_count)
     train_loader.skip_epochs(start_epoch)
 
     # SIGTERM (a preemption notice) sets a flag; the loop checkpoints after
@@ -179,10 +200,35 @@ def train_model(
         with anomaly:
             return _epoch_loop(config, state, train_loader, val_dataset, manager, pre_manager, sched,
                                metric_writer, checkpoint_base, profile_steps, steps_per_epoch, rng_seed,
-                               start_epoch, preempt, device, history, group)
+                               start_epoch, preempt, device, history, group, mesh)
     finally:  # a raise in the loop must not leave the handler installed
         if installed:
             signal.signal(signal.SIGTERM, signal.SIG_DFL if prev_handler is None else prev_handler)
+
+
+def _gspmd_mesh(config: MaskRCNNConfig, group):
+    """The ``(data, model)`` mesh of a gspmd run over ``group``'s ranks, or
+    None when there is no group of several ranks."""
+    world = distributed.world_size(group) if group is not None else 1
+    if world == 1:
+        return None
+    tp = config.tp_shards
+    if world % tp:
+        raise ValueError(f"tp_shards={tp} does not divide the {world} ranks of the group")
+    if config.batch_size % (world // tp):
+        raise ValueError(f"batch_size {config.batch_size} does not split over {world // tp} data ranks")
+    mesh = make_mesh_2d(world // tp, tp, group)
+    if distributed.rank(group) == 0:
+        print(f"gspmd over {world} ranks: ({config.mesh_data_axis}={world // tp}, {config.mesh_model_axis}={tp})")
+    return mesh
+
+
+def _data_shard(group, mesh):
+    """``(index, count)`` of this rank's data shard: the loader's shard and
+    the draws are the data rank's."""
+    if mesh is not None:
+        return mesh.data_rank, mesh.n_data
+    return distributed.rank(group), distributed.world_size(group)
 
 
 def _means(sums: Optional[Dict[str, torch.Tensor]], n: int) -> Dict[str, float]:
@@ -202,11 +248,16 @@ def _any_rank(flag: bool, group, device) -> bool:
 
 def _epoch_loop(config, state, train_loader, val_dataset, manager, pre_manager, sched, metric_writer,
                 checkpoint_base, profile_steps, steps_per_epoch, rng_seed, start_epoch, preempt, device, history,
-                group):
-    train_step = make_train_step(config, group)
-    eval_step = make_eval_step(config, group)
+                group, mesh):
+    if mesh is not None:
+        train_step, state = gspmd.make_gspmd_train_step(config, mesh, state)
+        eval_step = gspmd.make_gspmd_eval_step(config, mesh, state)
+    else:
+        train_step = make_train_step(config, group)
+        eval_step = make_eval_step(config, group)
     rank, world = distributed.rank(group), distributed.world_size(group)
     primary = rank == 0
+    data_rank, data_count = _data_shard(group, mesh)
     profiler = None
     for epoch in range(start_epoch, config.epochs):
         t0 = time.perf_counter()
@@ -230,7 +281,7 @@ def _epoch_loop(config, state, train_loader, val_dataset, manager, pre_manager, 
                     profiler.start()
                 if group is not None:  # this rank's SIGTERM rides the step's all-reduce
                     batch["preempt"] = torch.tensor([1.0 if preempt["hit"] else 0.0], device=device)
-                state, losses = train_step(state, batch, rng=step_generator(rng_seed, global_step, rank))
+                state, losses = train_step(state, batch, rng=step_generator(rng_seed, global_step, data_rank))
                 if group is not None:
                     stop = float(losses.pop("preempt")) > 0  # the mean over the ranks: > 0 if any was signalled
                 if profiler is not None and global_step == profile_steps[1]:
@@ -257,7 +308,8 @@ def _epoch_loop(config, state, train_loader, val_dataset, manager, pre_manager, 
             print(f"rank {rank}: " * (world > 1) + f"preempted at epoch {epoch + 1} step {spe}: checkpoint saved")
             return state
         if val_dataset is not None:
-            val_loader = DataLoader(val_dataset, config, shuffle=False, process_index=rank, process_count=world)
+            val_loader = DataLoader(val_dataset, config, shuffle=False, process_index=data_rank,
+                                    process_count=data_count)
             val_fixed = val_loader.steps_per_epoch if world > 1 else None
             val_agg, val_n = None, 0
             if val_fixed != 0:  # a validation set smaller than a global batch: every rank skips it

@@ -121,13 +121,15 @@ def _ftrl_update(g, slots, params, lr, lr_power=-0.5, l1=0.0, l2=0.0):
     return updates, {"n": n_out, "z": z_out}
 
 
-def _global_norm(g: Tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t * t) for t in g))
+def sum_of_squares(g: Tensors) -> torch.Tensor:
+    return sum(torch.sum(t * t) for t in g)
 
 
-def build_optimizer(config) -> Optimizer:
+def build_optimizer(config, sum_squares: Callable[[Tensors], torch.Tensor] = sum_of_squares) -> Optimizer:
     """The optimizer of ``config.optimizer`` behind ``clipvalue`` then
-    ``clipnorm``, at ``config.learning_rate``."""
+    ``clipnorm``, at ``config.learning_rate``. ``clipnorm``'s global norm is
+    ``sqrt(sum_squares(grads))``: a tensor-parallel step passes one that
+    counts each shard's squares once over its model group."""
     name = config.optimizer.lower()
     if name not in _RULES and name != "ftrl":
         raise ValueError(f"unsupported optimizer '{name}'; available: {sorted([*_RULES, 'ftrl'])}")
@@ -143,7 +145,7 @@ def build_optimizer(config) -> Optimizer:
         if clipvalue is not None:
             g = [torch.clamp(t, -clipvalue, clipvalue) for t in g]
         if clipnorm is not None:
-            norm = _global_norm(g)
+            norm = torch.sqrt(sum_squares(g))
             g = [torch.where(norm < clipnorm, t, (t / norm) * clipnorm) for t in g]
         lr = state.hyperparams["learning_rate"]
         count = state.count + 1

@@ -28,6 +28,23 @@ reduced total, so every rank takes or skips the update together (the JAX
 step tests each shard's local total: a divergence by design). The step uses
 ``torch.autograd.grad`` on a parameter list and places the all-reduce by
 hand, as the JAX package does; ``DistributedDataParallel`` is not used.
+
+Tensor parallelism (``mesh``, a ``parallel.mesh.Mesh2D``; JAX
+``parallel/gspmd.py``): the state is placed on the mesh
+(``parallel.gspmd.place_state``), ``batch`` and the draws are this rank's
+data rank's, and the model ranks of one data rank compute the same losses.
+The gradients go in two fused buffers: the replicated leaves' with the total
+and the losses averaged over the world (the copies on a model group's ranks
+are nominally equal, so this is the mean over the data ranks, and it leaves
+every rank the same bits), the shards' over their data group. Each data
+rank's losses are its share of the global-batch losses (each divided by the
+global count of its items) times the number of data ranks, so these means
+are the global batch's losses and gradients, as JAX's partitioned
+global-batch step computes them. A shard's L2
+term is ``sum(w**2) / N_full`` with its gradient kept local, and the terms
+are summed over the model group for ``l2_loss``; ``clipnorm`` sums the
+shards' squares there too; the guard is decided over the world. The batch
+norms take the data group's statistics (``place_state`` gives it to them).
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.ops.augment import device_augment
 from maskrcnn_tf2_tpu_torch.ops.image import parse_image_meta
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms, rpn_targets
+from maskrcnn_tf2_tpu_torch.parallel import distributed, gspmd
 from maskrcnn_tf2_tpu_torch.train.optimizer import OptState, build_optimizer
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
@@ -91,7 +109,11 @@ def _loss(model: MaskRCNN, batch: Batch, draws: Mapping[str, torch.Tensor], conf
           augment: bool = False):
     """Total loss and the named losses (``l2_loss`` among them). ``augment``
     (the training step's) applies ``device_augment`` first when the config
-    asks for it, before the RPN targets, as the JAX step does."""
+    asks for it, before the RPN targets, as the JAX step does. On a model
+    placed on a mesh the losses are normalized over the global batch and
+    scaled by the data ranks' number, the total holds this rank's shards' L2
+    terms (their gradient), and ``l2_loss`` every shard's (summed over the
+    model group)."""
     if augment and config.augment_on_device:
         batch = device_augment(batch, draws, flip=config.augment_flip, scale_jitter=config.augment_scale_jitter,
                                photometric=config.augment_photometric)
@@ -100,10 +122,24 @@ def _loss(model: MaskRCNN, batch: Batch, draws: Mapping[str, torch.Tensor], conf
     outputs = model(batch["images"], batch["image_meta"], batch["gt_class_ids"], batch["gt_boxes"],
                     batch["gt_masks"], input_rois=batch.get("input_rois"), train=True, draws=draws)
     active = parse_image_meta(batch["image_meta"].to(torch.float32))["active_class_ids"]
-    total, losses = compute_losses(outputs, rpn.match, rpn.deltas, active, config)
-    l2 = l2_reg_loss(model, config.weight_decay, config.l2_reg_batchnorm, _frozen_prefixes(config))
-    losses["l2_loss"] = l2
-    return total + l2, losses
+    mesh = gspmd.mesh_of(model)
+    if mesh is None or mesh.n_data == 1:
+        total, losses = compute_losses(outputs, rpn.match, rpn.deltas, active, config)
+    else:  # each data rank's share of the global-batch losses, times n_data: the world mean is their sum
+        total, losses = compute_losses(outputs, rpn.match, rpn.deltas, active, config,
+                                       reduce_count=lambda n: gspmd.sum_over(n, mesh.data_group))
+        total, losses = total * mesh.n_data, {k: v * mesh.n_data for k, v in losses.items()}
+    if mesh is None:
+        l2 = l2_reg_loss(model, config.weight_decay, config.l2_reg_batchnorm, _frozen_prefixes(config))
+        losses["l2_loss"] = l2
+        return total + l2, losses
+    sizes = gspmd.full_sizes(model)
+    l2 = l2_reg_loss(model, config.weight_decay, config.l2_reg_batchnorm, _frozen_prefixes(config),
+                     select=lambda name: name not in sizes)
+    l2_shard = l2_reg_loss(model, config.weight_decay, config.l2_reg_batchnorm, _frozen_prefixes(config),
+                           select=lambda name: name in sizes, sizes=sizes)
+    losses["l2_loss"] = l2.detach() + gspmd.sum_over(l2_shard, mesh.model_group)
+    return total + l2 + l2_shard, losses
 
 
 def _draws(config, batch, rng, draws):
@@ -135,7 +171,14 @@ def fused_all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> List[torch.
     return out
 
 
-def make_train_step(config: MaskRCNNConfig, group=None):
+def _any_not_finite(finite: torch.Tensor, group) -> torch.Tensor:
+    """True where ``finite`` is False on some rank of ``group`` (one sum)."""
+    bad = (~finite).to(torch.float32).reshape(1).to(distributed.small_tensor_device(group, finite.device))
+    tdist.all_reduce(bad, group=group)
+    return bad.to(finite.device).reshape(()) > 0
+
+
+def make_train_step(config: MaskRCNNConfig, group=None, mesh=None):
     """``train_step(state, batch, rng=None, draws=None) -> (state, losses)``.
 
     ``batch``: ``images [B, H, W, 3]``, ``image_meta [B, M]``,
@@ -150,7 +193,13 @@ def make_train_step(config: MaskRCNNConfig, group=None):
     With ``group`` (a process group) the step is data-parallel: ``batch`` is
     this rank's rows, ``rng``/``draws`` its own, and the losses returned are
     the means over the ranks (see the module's docstring).
+
+    With ``mesh`` (then ``group`` is not used) the step is tensor-parallel:
+    ``state`` must be placed on it (``parallel.gspmd.make_gspmd_train_step``);
+    see the module's docstring.
     """
+    if mesh is not None and config.sync_bn:
+        raise ValueError("gspmd mode takes global-batch batch-norm statistics by construction: sync_bn must be False")
     if config.quant_mode != "off":
         raise ValueError("quant_mode is inference-only post-training quantization; train with quant_mode='off'")
     if config.nonfinite_guard not in ("off", "loss", "full"):
@@ -160,6 +209,8 @@ def make_train_step(config: MaskRCNNConfig, group=None):
     def train_step(state: TrainState, batch: Batch, rng: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, torch.Tensor]] = None):
         model = state.model
+        if gspmd.mesh_of(model) is not mesh:
+            raise ValueError("the state is not placed on the step's mesh (parallel.gspmd.place_state)")
         params = list(model.parameters())
         stats = _bn_stats(model)
         saved = [t.clone() for t in stats] if config.nonfinite_guard != "off" else None
@@ -172,7 +223,24 @@ def make_train_step(config: MaskRCNNConfig, group=None):
         losses = {k: v.detach() for k, v in losses.items()}
         if preempt is not None:
             losses["preempt"] = preempt.detach().to(torch.float32).max()
-        if group is not None:
+        opt_step = opt
+        if mesh is not None:
+            total = losses["loss_sum"] + losses["l2_loss"]  # every shard's L2 term
+            shards = gspmd.shard_indices(model)
+            repl = [i for i in range(len(grads)) if i not in shards]
+            names = list(losses)
+            out = fused_all_reduce_mean([grads[i] for i in repl] + [total] + [losses[k] for k in names], mesh.world)
+            sharded = [grads[i] for i in shards]
+            if mesh.n_data > 1:
+                sharded = fused_all_reduce_mean(sharded, mesh.data_group)
+            grads = list(grads)
+            for i, g in zip(repl + list(shards), out[:len(repl)] + sharded):
+                grads[i] = g
+            total = out[len(repl)]
+            losses = dict(zip(names, out[len(repl) + 1:]))
+            if config.clipnorm is not None:
+                opt_step = build_optimizer(config, gspmd.sum_squares_fn(shards, mesh))
+        elif group is not None:
             names, n = list(losses), len(grads)
             reduce_stats = stats if not config.sync_bn else []
             out = fused_all_reduce_mean(grads + [total] + [losses[k] for k in names] + reduce_stats, group)
@@ -181,12 +249,14 @@ def make_train_step(config: MaskRCNNConfig, group=None):
             with torch.no_grad():
                 for t, r in zip(reduce_stats, out[n + 1 + len(names):]):
                     t.copy_(r)
-        updates, new_opt_state = opt.update(grads, state.opt_state, params)
+        updates, new_opt_state = opt_step.update(grads, state.opt_state, params)
         ok = True
         if config.nonfinite_guard != "off":
             finite = torch.isfinite(total)
             if config.nonfinite_guard == "full":
                 finite = finite & torch.stack([torch.isfinite(u).all() for u in updates]).all()
+            if mesh is not None:  # a shard's update can be non-finite on one model rank alone
+                finite = ~_any_not_finite(finite, mesh.world)
             ok = bool(finite)
         if ok:
             with torch.no_grad():
@@ -203,11 +273,13 @@ def make_train_step(config: MaskRCNNConfig, group=None):
     return train_step
 
 
-def make_eval_step(config: MaskRCNNConfig, group=None):
+def make_eval_step(config: MaskRCNNConfig, group=None, mesh=None):
     """``eval_step(state, batch, rng=None, draws=None) -> losses``: the same
     losses as a training step, without the augmentation, the L2 term, the
     update, or any change to the batch-norm statistics. With ``group`` the
-    losses are the means over the ranks, in one all-reduce."""
+    losses are the means over the ranks, in one all-reduce; with ``mesh``
+    (a state placed on it, this rank's data rank's rows) over its world."""
+    group = mesh.world if mesh is not None else group
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch, rng: Optional[torch.Generator] = None,

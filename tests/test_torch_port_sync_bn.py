@@ -183,6 +183,6 @@ def test_sync_bn_without_a_group_raises_in_training_and_serves():
         make_train_step(cfg)(state, batch, rng=torch.Generator().manual_seed(1))
     out = state.model(batch["images"], batch["image_meta"])
     assert out["detections"].shape == (1, cfg.detection_max_instances, 6)
-    for over in (dict(parallel_mode="gspmd"), dict(tp_shards=2)):
-        with pytest.raises(ValueError, match="A.6b"):
-            MaskRCNNConfig(**TINY, **over)
+    assert MaskRCNNConfig(**TINY, parallel_mode="gspmd").tp_shards == 1
+    with pytest.raises(ValueError, match="parallel_mode='gspmd'"):
+        MaskRCNNConfig(**TINY, tp_shards=2)

@@ -12,6 +12,13 @@ Not a test: it prints the numbers behind the gradient tolerances of
    the port computes: JAX's float32 gradient and the port's float32 gradient
    against the port's float64 gradient of the same function, as they are and
    with ten of the sixteen ROI slots zeroed, as padding slots are.
+3. The scene of ``tests/test_torch_port_gspmd.py`` (its four gloo ranks and
+   JAX's gspmd steps, through the test's own fixture): each layout's losses
+   and first moments against JAX's, in budgets of the moment rule (1e-4 *
+   (leaf max + step max)); JAX's (2, 2)-mesh moments against its (1, 2)
+   mesh's on running averages; JAX's gspmd losses against its single-device
+   step's; and the one-process port on batch statistics, at one and two
+   intra-op threads, against JAX's (1, 2) mesh.
 """
 
 import copy
@@ -20,8 +27,10 @@ import sys
 
 sys.path[:0] = [os.path.dirname(os.path.abspath(__file__)), os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")  # section 3's meshes
 
 import jax  # noqa: E402
+import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -116,6 +125,59 @@ def mask_head_precision():
               f"{e_jax:.3g} of the leaf's max ({l_jax}), the port's float32 by {e_port:.3g} ({l_port})")
 
 
+def moment_budgets(model, mu, ref_mu):
+    """The worst leaf of ``mu`` against ``ref_mu`` (flax trees or port dicts),
+    in budgets of the moment rule, and its name."""
+    def port(tree):
+        return tree if isinstance(tree, dict) and all("." in k for k in tree) else \
+            {k: v.numpy() for k, v in flax_to_state_dict({"params": tree}, model, params_only=True).items()}
+
+    mu, ref_mu = port(mu), port(ref_mu)
+    step_max = max(float(np.abs(v).max()) for v in ref_mu.values())
+    return max((float(np.abs(mu[k] - v).max()) / (1e-4 * (float(np.abs(v).max()) + step_max)), k)
+               for k, v in ref_mu.items())
+
+
+def tensor_parallel_scene():
+    import test_torch_port_gspmd as tp_test
+    from maskrcnn_tf2_tpu.config import MaskRCNNConfig as JaxConfig
+    from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+    from maskrcnn_tf2_tpu_torch.train.train_step import make_train_step
+
+    model, refs, _, ranks = tp_test.run._get_wrapped_function()()
+    for case in ("dp1", "dp2", "dp2_bn"):
+        out, ref = ranks[0][case], refs[case]
+        lo = max((step_test.rel(out["losses"][0][k], v), k) for k, v in ref["losses"][0].items())
+        same = "" if case == "dp2_bn" else \
+            f", against its (1, 2) mesh {moment_budgets(model, out['mu'], refs['dp1']['mu'])[0]:.3g}"
+        print(f"gspmd {case}: worst loss {lo[0]:.3g} relative ({lo[1]}); moments against JAX's own mesh "
+              f"{moment_budgets(model, out['mu'], ref['mu'])[0]:.3g} budgets{same}")
+    own = moment_budgets(model, refs["dp2"]["mu"], refs["dp1"]["mu"])
+    print(f"JAX on running averages, (2, 2) mesh against (1, 2): {own[0]:.3g} budgets ({own[1]})")
+    variables, batch, rng = tp_test.jax_variables(), tp_test.dp_batch(), jax.random.PRNGKey(7)
+    jcfg = JaxConfig(**tp_test.TP_BN)
+    (_, (single, _)), _ = jax.jit(jax.value_and_grad(step_test.jax_loss_fn(jcfg), has_aux=True))(
+        variables["params"], variables["batch_stats"], batch, rng)
+    worst = max((step_test.rel(refs["dp2_bn"]["losses"][0][k], v), k) for k, v in single.items())
+    print(f"JAX on batch statistics, the (2, 2) mesh's losses against the single-device step's: {worst[0]:.3g} "
+          f"relative ({worst[1]})")
+    ref = tp_test.jax_gspmd(jcfg, variables, batch, rng, 1)
+    draws = {k: torch.from_numpy(v) for k, v in tp_test.jax_draws(rng, jcfg, jcfg.post_nms_rois_training, 2).items()}
+    cfg = MaskRCNNConfig(**tp_test.TP_BN)
+    before = torch.get_num_threads()
+    for threads in (1, 2):
+        torch.set_num_threads(threads)
+        state = step_test.port_state(cfg, variables)
+        names = [n for n, _ in state.model.named_parameters()]
+        state, _ = make_train_step(cfg)(state, step_test.torch_batch(batch), draws=draws)
+        mu = {n: m.numpy() for n, m in zip(names, state.opt_state.slots["mu"])}
+        worst = moment_budgets(model, mu, ref["mu"])
+        print(f"one process on batch statistics at {threads} thread(s) against JAX's (1, 2) mesh: "
+              f"{worst[0]:.3g} budgets ({worst[1]})")
+    torch.set_num_threads(before)
+
+
 if __name__ == "__main__":
     backbone_sensitivity()
     mask_head_precision()
+    tensor_parallel_scene()
