@@ -225,7 +225,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                checks, the first update held on a float32 step with the batch
                norms on running averages (with batch statistics the data
                ranks sum them in another order, which the backbone's
-               gradients amplify at random weights); (c) ``train_model`` in
+               gradients amplify at random weights), and a float32 step on
+               batch statistics over the data group whose losses and
+               running statistics are held against one process's (1e-5 of
+               max(1, |value|)); (c) ``train_model`` in
                gspmd mode under DP1xTP2 on phase 10's COCO directory (1 epoch
                of 3 steps, validation, launches exact, rank 0 alone writes a
                whole checkpoint), then that checkpoint restored into one
@@ -239,9 +242,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                K7 65 a replica. Prints the model-group all-reduces' bytes and
                ms, the steps' ms beside the single-process step's, the two
                predictors' forwards; ranks and replicas share one card, so
-               no number is a scaling number. ``--only tensor-parallel``
-               runs this phase alone (its own COCO directory and int8
-               calibration; no kernels' line).
+               no number is a scaling number.
 20. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
@@ -250,6 +251,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import hashlib
 import io
 import json
@@ -295,7 +297,8 @@ from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
 from maskrcnn_tf2_tpu_torch.parallel import distributed, gspmd, multihost_dryrun
-from maskrcnn_tf2_tpu_torch.parallel.mesh import check_replicated, make_mesh_2d, shard_batch
+from maskrcnn_tf2_tpu_torch.parallel.mesh import (check_equal, check_replicated, make_mesh_2d, shard_batch,
+                                                  tensor_checksum)
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
 from maskrcnn_tf2_tpu_torch.train import checkpoint as ckpt_lib
 from maskrcnn_tf2_tpu_torch.train.loop import step_generator, train_model
@@ -2711,24 +2714,6 @@ def tp_config() -> MaskRCNNConfig:
     return flagship_train_config().replace(parallel_mode="gspmd", tp_shards=TP_SHARDS)
 
 
-def bits_checksum(t: torch.Tensor) -> torch.Tensor:
-    """Two int64 sums of ``t``'s raw bits: of the words and of the words
-    weighted by their position (mod 65521)."""
-    words = t.detach().contiguous().reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
-    words = words.to(torch.int64)
-    weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
-    return torch.stack([words.sum(), (words * weights).sum()])
-
-
-def check_equal_over(c: torch.Tensor, group, what: str) -> None:
-    """Raise unless ``c`` is equal on every rank of ``group`` (one MAX
-    all-reduce of ``[c, -c]``)."""
-    both = torch.cat([c, -c]).cpu()
-    torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX, group=group)
-    if not torch.equal(both[:len(c)], -both[len(c):]):
-        raise AssertionError(f"{what} differs across the ranks of its group")
-
-
 def group_all_reduce_ms(shape, group, device, reps=3):
     """Median ms of one float32 all-reduce of ``shape`` over ``group`` on the
     host clock (the card synchronized around each), after one warm-up."""
@@ -2752,19 +2737,60 @@ def tp_draws(cfg, mesh, step, device):
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def split_head_forward(head, k):
+def data_group_norm(x, weight, bias, eps, n_data):
+    """``layers.BatchNorm._sync_forward``'s arithmetic in one process over
+    ``n_data`` data ranks that each hold an equal block of ``x``'s rows
+    (image-major, as the ranks split the global batch): each block's E[x]
+    and E[x^2] in float32, summed and divided by ``n_data``, var = E[x^2] -
+    E[x]^2. Returns the output in ``x``'s dtype, the mean and the variance."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    x32 = x.to(torch.float32)
+    mean, mean2 = sum(torch.stack([b.mean(dims), (b * b).mean(dims)]) for b in x32.chunk(n_data)) / n_data
+    var = torch.clamp_min(mean2 - mean * mean, 0.0)
+    y = (x32 - mean.reshape(shape)) * (torch.rsqrt(var + eps) * weight).reshape(shape) + bias.reshape(shape)
+    return y.to(x.dtype), mean, var
+
+
+def data_group_batch_norms_(model, n_data):
+    """Every batch norm of ``model`` in training computes ``data_group_norm``
+    over ``n_data`` data ranks, as a gspmd step's batch norms do over its
+    data group."""
+
+    def forward(m, x):
+        if not m.training:
+            return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0, m.eps)
+        y, mean, var = data_group_norm(x, m.weight, m.bias, m.eps, n_data)
+        with torch.no_grad():
+            m.running_mean.mul_(layers.FLAX_MOMENTUM).add_(mean * m.momentum)
+            m.running_var.mul_(layers.FLAX_MOMENTUM).add_(var * m.momentum)
+        return y
+
+    for m in model.modules():
+        if isinstance(m, layers.BatchNorm):
+            m.forward = functools.partial(forward, m)
+
+
+def split_head_forward(head, k, n_data=1):
     """``head``'s forward with the tensor-parallel head's arithmetic in one
     process: FC1 and its batch norm as ``k`` blocks of output features, each
     block's FC2 partial product in float32, the partials summed in order and
-    FC2's bias added once before the one rounding to the compute dtype.
-    The whole parameters stay the model's, so the update compares leaf by
-    leaf with the gathered one."""
+    FC2's bias added once before the one rounding to the compute dtype; with
+    ``n_data`` > 1 the blocks' batch norms take ``data_group_norm``'s
+    statistics. The whole parameters stay the model's, so the update
+    compares leaf by leaf with the gathered one."""
     fc1, bn1, fc2 = head.mrcnn_class_conv1, head.mrcnn_class_bn1, head.mrcnn_class_conv2
 
     def block_batch_norm(h, rows):
         if not bn1.training:
             return F.batch_norm(h, bn1.running_mean[rows], bn1.running_var[rows], bn1.weight[rows], bn1.bias[rows],
                                 False, 0.0, bn1.eps)
+        if n_data > 1:
+            y, mean, var = data_group_norm(h, bn1.weight[rows], bn1.bias[rows], bn1.eps, n_data)
+            with torch.no_grad():
+                bn1.running_mean[rows] = bn1.running_mean[rows] * layers.FLAX_MOMENTUM + mean * bn1.momentum
+                bn1.running_var[rows] = bn1.running_var[rows] * layers.FLAX_MOMENTUM + var * bn1.momentum
+            return y
         mean, var = torch.zeros_like(bn1.running_mean[rows]), torch.ones_like(bn1.running_var[rows])
         y = F.batch_norm(h, mean, var, bn1.weight[rows], bn1.bias[rows], True, 1.0, bn1.eps)
         n = h.numel() // h.shape[1]
@@ -2790,22 +2816,44 @@ def split_head_forward(head, k):
     return forward
 
 
-def tp_emulate(cfg, device, batch, draws, whole_sd, whole_mu):
-    """The first gspmd step's whole update against one process's
-    ``make_train_step`` on the same seeded state, global batch and draws,
-    its classifier computing the split head's arithmetic
-    (``split_head_forward``), by phase 16's rule: each first adamax moment
-    within 1e-4 * (max |emulated leaf| + the step's largest |emulated
-    moment|), the parameters within 1e-3 * lr where |g| >= 1e-4, the
-    running statistics within 1e-5 of max(1, |stat|)."""
+def tp_emulate(cfg, device, batch, draws, n_data=1):
+    """One process's ``make_train_step`` on the seeded state, a global batch
+    and its draws, the classifier computing the split head's arithmetic
+    (``split_head_forward``) and, with ``n_data`` > 1, every batch norm the
+    arithmetic of a data group of ``n_data`` ranks (``data_group_norm``):
+    the state dict after the step, the parameters' names, their first
+    adamax moments and the losses."""
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
+    if n_data > 1:
+        data_group_batch_norms_(state.model, n_data)
     head = state.model.classifier
-    head.forward = split_head_forward(head, TP_SHARDS)
+    head.forward = split_head_forward(head, TP_SHARDS, n_data)
     names = [n for n, _ in state.model.named_parameters()]
-    state, _ = make_train_step(cfg)(state, batch, draws=draws)
-    mu = dict(zip(names, state.opt_state.slots["mu"]))
+    state, losses = make_train_step(cfg)(state, batch, draws=draws)
+    return (state.model.state_dict(), names, dict(zip(names, state.opt_state.slots["mu"])),
+            {k: float(v) for k, v in losses.items()})
+
+
+def stat_errors(sd, whole_sd):
+    """Of every batch norm's running mean and variance: the largest
+    difference, and the largest in units of 1e-5 * max(1, |stat|) (each
+    tensor's own)."""
+    stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    errs = {k: float((sd[k] - whole_sd[k]).abs().max()) for k in stats}
+    budgets = {k: errs[k] / (1e-5 * max(1.0, float(sd[k].abs().max()))) for k in stats}
+    worst = max(budgets, key=budgets.get)
+    return max(errs.values()), worst, budgets[worst]
+
+
+def tp_hold_update(cfg, device, batch, draws, whole_sd, whole_mu):
+    """The first gspmd step's whole update against ``tp_emulate``'s, by
+    phase 16's rule: each first adamax moment within 1e-4 * (max |emulated
+    leaf| + the step's largest |emulated moment|), the parameters within
+    1e-3 * lr where |g| >= 1e-4, the running statistics within 1e-5 of
+    max(1, |stat|)."""
+    sd, names, mu, _ = tp_emulate(cfg, device, batch, draws)
     mu_max = max(float(m.abs().max()) for m in mu.values())
-    sd, lr = state.model.state_dict(), cfg.learning_rate
+    lr = cfg.learning_rate
     mu_err, err_big, mu_equal, equal, over = 0.0, 0.0, 0, 0, []
     for i, name in enumerate(names):
         m, q = mu[name], whole_mu[i]
@@ -2819,14 +2867,31 @@ def tp_emulate(cfg, device, batch, draws, whole_sd, whole_mu):
         if bool(big.any()):
             err_big = max(err_big, float(diff[big].max()))
         equal += int(bool(torch.equal(sd[name], whole_sd[name])))
-    stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
-    stat_err = max(float((sd[k] - whole_sd[k]).abs().max()) for k in stats)
-    stat_max = max(1.0, max(float(sd[k].abs().max()) for k in stats))
-    if over or err_big > 1e-3 * lr or stat_err > 1e-5 * stat_max:
+    stat_err, worst, stat_budgets = stat_errors(sd, whole_sd)
+    if over or err_big > 1e-3 * lr or stat_budgets > 1:
         raise AssertionError(f"gspmd vs one process: first moments off {over}; parameters {err_big} where "
-                             f"|grad| >= 1e-4 (lr {lr}), statistics {stat_err}")
+                             f"|grad| >= 1e-4 (lr {lr}), statistics {stat_err} ({worst}: {stat_budgets:.2f} budgets)")
     return dict(mu_err=mu_err, mu_max=mu_max, mu_equal=mu_equal, err_big=err_big, equal=equal, n=len(names),
                 stat_err=stat_err)
+
+
+def tp_hold_forward(cfg, device, batch, draws, whole_sd, losses, n_data):
+    """What the forward of the first gspmd step alone computes, against
+    ``tp_emulate``'s with the data group's arithmetic: each loss within
+    1e-5 * max(1, |loss|), and every batch norm's running mean and variance
+    after the step within 1e-5 of max(1, |stat|). On batch statistics over
+    the data group these are the values a wrong data group or a wrong count
+    would move; the backward's amplification at random weights does not
+    reach them."""
+    sd, _, _, want = tp_emulate(cfg, device, batch, draws, n_data)
+    loss_err = {k: abs(losses[k] - v) / max(1.0, abs(v)) for k, v in want.items()}
+    stat_err, worst, stat_budgets = stat_errors(sd, whole_sd)
+    if max(loss_err.values()) > 1e-5 or stat_budgets > 1:
+        raise AssertionError(f"gspmd vs one process on batch statistics: losses (gspmd, one process) "
+                             f"{[(k, losses[k], want[k]) for k in want]}, relative {loss_err}; statistics "
+                             f"{stat_err} ({worst}: {stat_budgets:.2f} budgets)")
+    return dict(loss_err=max(loss_err.values()), stat_err=stat_err, stat_budgets=stat_budgets, worst=worst,
+                losses=len(want))
 
 
 def tp_steps(rank, cfg, device, mesh, steps, calls=None, hold=False):
@@ -2848,7 +2913,7 @@ def tp_steps(rank, cfg, device, mesh, steps, calls=None, hold=False):
     if shapes != ((fc // TP_SHARDS, pooled), (fc, fc // TP_SHARDS)):
         raise AssertionError(f"rank {rank}: FC shard shapes {shapes}")
     fc1_in = []
-    hook = head.mrcnn_class_conv1.register_forward_pre_hook(lambda mod, args: fc1_in.append(bits_checksum(args[0])))
+    hook = head.mrcnn_class_conv1.register_forward_pre_hook(lambda mod, args: fc1_in.append(tensor_checksum(args[0])))
     zero_launch_counts()
     times, first = [], None
     try:
@@ -2865,7 +2930,7 @@ def tp_steps(rank, cfg, device, mesh, steps, calls=None, hold=False):
             if rose != (1, 2, 2) or not all(np.isfinite(v) for v in values.values()) or values["grad_finite"] != 1:
                 raise AssertionError(f"rank {rank} gspmd step {i}: launches {rose}, losses {values}")
             check_replicated(state.model, None, f"the state after gspmd step {i}", mesh=mesh)
-            check_equal_over(fc1_in[-1], mesh.model_group, f"FC1's input in step {i}")
+            check_equal(fc1_in[-1], mesh.model_group, f"FC1's input in step {i}")
             if i == 0 and hold:  # copies: the replicated entries are the live model's tensors
                 sd, slots = gspmd.gather_state_dict(state, mesh)
                 first = ({k: v.clone() for k, v in sd.items()}, {"mu": [t.clone() for t in slots["mu"]]})
@@ -2874,34 +2939,39 @@ def tp_steps(rank, cfg, device, mesh, steps, calls=None, hold=False):
     out = dict(times=times, loss=values["loss_sum"], launches=launch_counts(), shapes=shapes)
     if hold and rank == 0:
         del state
-        out["emulation"] = tp_emulate(cfg, device, gbatch, tp_draws(cfg, mesh, 0, device), first[0],
-                                      first[1]["mu"])
+        out["emulation"] = tp_hold_update(cfg, device, gbatch, tp_draws(cfg, mesh, 0, device), first[0],
+                                          first[1]["mu"])
     return out
 
 
-def tp_first_update(rank, cfg, device, mesh):
-    """Phase 19(b)'s hold of the first update: one gspmd step in float32
-    (TF32 off) with the batch norms on their running averages, from the
-    seed, gathered whole, and on rank 0 held against one process
-    (``tp_emulate``). With batch statistics over the data group the ranks
-    sum each statistic in another order than one process does, and at
-    random weights the backbone's gradients amplify a float32 rounding of
-    the statistics past the rule (as ``tests/test_torch_port_gspmd.py``
-    finds on the CPU); on running averages the two differ by summation order
-    alone."""
+def tp_first_step(rank, cfg, device, mesh, forward_only=False):
+    """Phase 19(b)'s holds of a float32 gspmd step (TF32 off) from the seed,
+    gathered whole, on rank 0 against one process. With the batch norms on
+    their running averages (``cfg``'s ``train_bn`` off) the whole update is
+    held (``tp_hold_update``): the two differ by summation order alone. On
+    batch statistics over the data group the ranks sum each statistic in
+    another order than one process does, and at random weights the
+    backbone's gradients amplify a float32 rounding of the statistics past
+    the update's rule (as ``tests/test_torch_port_gspmd.py`` finds on the
+    CPU), so ``forward_only`` holds the losses and the statistics
+    (``tp_hold_forward``)."""
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         gbatch = synthetic_batch(cfg, cfg.batch_size, SEED + 16, device)
         state = create_train_state(cfg, torch.Generator().manual_seed(SEED), device=device)
         step, state = gspmd.make_gspmd_train_step(cfg, mesh, state)
-        state, _ = step(state, gspmd.shard_global_batch(gbatch, mesh, cfg),
-                        rng=step_generator(SEED, 0, mesh.data_rank))
+        state, losses = step(state, gspmd.shard_global_batch(gbatch, mesh, cfg),
+                             rng=step_generator(SEED, 0, mesh.data_rank))
         whole_sd, slots = gspmd.gather_state_dict(state, mesh)
         del state
         if rank != 0:
             return None
-        return tp_emulate(cfg, device, gbatch, tp_draws(cfg, mesh, 0, device), whole_sd, slots["mu"])
+        draws = tp_draws(cfg, mesh, 0, device)
+        if forward_only:
+            return tp_hold_forward(cfg, device, gbatch, draws, whole_sd, {k: float(v) for k, v in losses.items()},
+                                   mesh.n_data)
+        return tp_hold_update(cfg, device, gbatch, draws, whole_sd, slots["mu"])
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
@@ -2959,8 +3029,11 @@ def tp_rank(rank, size, init_method, root, n_data, steps):
     out["steps"] = tp_steps(rank, cfg, device, mesh, steps, calls, hold=n_data == 1)
     torch.cuda.empty_cache()
     if n_data > 1:
-        out["steps"]["emulation"] = tp_first_update(
-            rank, cfg.replace(compute_dtype="float32", train_bn=False, train_bn_backbone=False), device, mesh)
+        f32 = cfg.replace(compute_dtype="float32")
+        out["steps"]["emulation"] = tp_first_step(rank, f32.replace(train_bn=False, train_bn_backbone=False),
+                                                  device, mesh)
+        torch.cuda.empty_cache()
+        out["steps"]["batch_statistics"] = tp_first_step(rank, f32, device, mesh, forward_only=True)
     rows = cfg.batch_size // n_data * cfg.train_rois_per_image
     shapes = {"fc2_partial": (rows, cfg.fpn_cls_fc_layers_size),
               "fc1_input_cotangent": (rows, cfg.pool_size ** 2 * cfg.top_down_pyramid_size)}
@@ -3118,6 +3191,12 @@ def run_tensor_parallel(device, card, root, requests, int8_state):
             f"step max {e['mu_max']:.3g})), {e['mu_equal']} of {e['n']} bit-equal; parameters within "
             f"{e['err_big']:.3g} where |grad| >= 1e-4 (held <= 1e-3 lr), {e['equal']} of {e['n']} bit-equal; "
             f"statistics {e['stat_err']:.3g}")
+        if "batch_statistics" in st[0]:
+            f = st[0]["batch_statistics"]
+            log(f"  (b) {name}, a float32 step on batch statistics over the data group (TF32 off) against one "
+                f"process: its {f['losses']} losses within {f['loss_err']:.3g} relative (held <= 1e-5 of max(1, "
+                f"|loss|)); every running mean and variance within {f['stat_err']:.3g}, at most "
+                f"{f['stat_budgets']:.3f} of its budget 1e-5 max(1, |stat|) ({f['worst']})")
         log(f"  ({'a' if name == 'DP1xTP2' else 'b'}) {name} step ms by rank "
             f"{[[round(t, 1) for t in s['times']] for s in st]}; single-process step in this call {single_ms:.1f} "
             f"ms; model-group all-reduces a step (float32, ranks sharing one card): FC2's partial output "
@@ -3145,27 +3224,9 @@ def run_tensor_parallel(device, card, root, requests, int8_state):
     return out
 
 
-def tensor_parallel_only(device, card, requests) -> None:
-    """``--only tensor-parallel``: phase 19 alone, with its own COCO directory
-    and int8 calibration (a quicker check of that path while it changes; the
-    kernels' line and the last line are not printed)."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        shapes_datasets(os.path.join(root, "coco"))
-        cfg = flagship_config()
-        state = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED)).state_dict()
-        int8_state = quantize_for_inference(cfg, state, list(request_batches(requests, cfg)), device=device)
-        run_tensor_parallel(device, card, root, requests, int8_state)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
-    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
-    if only not in (None, "tensor-parallel"):
-        raise SystemExit(f"chip_smoke: --only {only}: the one phase that runs alone is tensor-parallel")
     device = torch.device("cuda")
     t0 = time.time()
     card = card_line()
@@ -3176,11 +3237,6 @@ def main() -> None:
     for name, out in logs.items():
         log(f"== build {name}.cu:\n" + "\n".join("  " + ln for ln in out.strip().splitlines()))
     log(f"== build done at {time.time() - t0:.1f} s (into {_build.BUILD_DIR})")
-    if only:
-        rs = np.random.RandomState(SEED)
-        tensor_parallel_only(device, card, [[smooth_image(rs, *hw) for hw in pair] for pair in REQUEST_SIZES])
-        log(f"== done at {time.time() - t0:.1f} s")
-        return
 
     cfg = flagship_config()
     model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(SEED))

@@ -119,7 +119,11 @@ def _eager_numerics() -> Dict[str, bool]:
     (from its calibrated amax) becomes a compile-time constant, and on the
     card Inductor divides by such a constant through its reciprocal. The int8
     sites quantize ``round(x / sx)``: an ulp off there flips a value by a
-    step, and the flip spreads (ROADMAP §C, C.5)."""
+    step, and the flip spreads (ROADMAP §C, C.5). Last, Inductor's
+    ``deterministic`` mode: no choice that changes the arithmetic is made by
+    timing on the card, so every build of one program generates the same
+    kernels (without it, builds of the flagship generated different kernel
+    sets; ROADMAP §C, C.6)."""
     from torch._inductor import config
 
     division = [name for name in ("eager_numerics.division_rounding", "emulate_divison_rounding",
@@ -127,7 +131,10 @@ def _eager_numerics() -> Dict[str, bool]:
                 if functools.reduce(lambda obj, attr: getattr(obj, attr, None), name.split("."), config) is not None]
     if not division:
         raise RuntimeError(f"torch {torch.__version__}'s Inductor offers no IEEE-division option")
-    return {"emulate_precision_casts": True, division[0]: True, "joint_graph_constant_folding": False}
+    if not hasattr(config, "deterministic"):
+        raise RuntimeError(f"torch {torch.__version__}'s Inductor offers no deterministic mode")
+    return {"emulate_precision_casts": True, division[0]: True, "joint_graph_constant_folding": False,
+            "deterministic": True}
 
 
 def _device_identity(device: torch.device) -> Dict[str, object]:

@@ -43,6 +43,8 @@ import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
+from maskrcnn_tf2_tpu_torch.parallel.distributed import sum_over
+
 
 def same_pad_amounts(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
@@ -119,14 +121,6 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
-def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``'s ranks, reduced in float32 (gloo
-    reduces no bfloat16 on a card), returned as float32."""
-    y = x.detach().to(torch.float32).contiguous().clone()
-    tdist.all_reduce(y, group=group)
-    return y
-
-
 class _CopyToModelGroup(torch.autograd.Function):
     """Tensor parallelism's entry (Megatron's ``f``): identity forward; the
     backward sums the cotangent over the model group, since each rank's
@@ -140,7 +134,7 @@ class _CopyToModelGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return _sum_over(g, ctx.group).to(g.dtype), None
+        return sum_over(g, ctx.group).to(g.dtype), None
 
 
 class _ReduceFromModelGroup(torch.autograd.Function):
@@ -152,7 +146,7 @@ class _ReduceFromModelGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
         ctx.dtype = x.dtype
-        return _sum_over(x, group)
+        return sum_over(x, group)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

@@ -136,6 +136,19 @@ def small_tensor_device(group, device) -> torch.device:
     return torch.device("cpu") if tdist.get_backend(group) == "gloo" else torch.device(device)
 
 
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``'s ranks in float32 (gloo reduces no
+    bfloat16 on a card), on ``x``'s device, without gradient; ``x`` itself
+    is left as it is. A scalar travels through ``small_tensor_device``."""
+    if x.dim() == 0:
+        y = x.detach().reshape(1).to(small_tensor_device(group, x.device), torch.float32, copy=True)
+        tdist.all_reduce(y, group=group)
+        return y.to(x.device).reshape(())
+    y = x.detach().to(torch.float32, copy=True).contiguous()
+    tdist.all_reduce(y, group=group)
+    return y
+
+
 def destroy() -> None:
     """Leave the process group (no-op when none)."""
     if tdist.is_initialized():

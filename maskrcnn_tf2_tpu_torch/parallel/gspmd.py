@@ -208,16 +208,9 @@ def sum_squares_fn(shards: Dict[int, int], mesh: Mesh2D) -> Callable[[List[torch
     def sum_squares(g: List[torch.Tensor]) -> torch.Tensor:
         repl = sum(torch.sum(t * t) for i, t in enumerate(g) if i not in shards)
         part = sum(torch.sum(t * t) for i, t in enumerate(g) if i in shards)
-        return repl + sum_over(part, mesh.model_group)
+        return repl + distributed.sum_over(part, mesh.model_group)
 
     return sum_squares
-
-
-def sum_over(x: torch.Tensor, group) -> torch.Tensor:
-    """A float32 scalar summed over ``group`` (no gradient)."""
-    t = x.detach().to(torch.float32).reshape(1).to(distributed.small_tensor_device(group, x.device))
-    tdist.all_reduce(t, group=group)
-    return t.to(x.device).reshape(())
 
 
 def make_gspmd_train_step(config: MaskRCNNConfig, mesh: Mesh2D, state):

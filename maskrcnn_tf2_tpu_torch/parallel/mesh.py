@@ -87,23 +87,26 @@ def shard_batch(global_batch: Mapping[str, torch.Tensor], rank: int, size: int) 
 _BITS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
 
 
+def tensor_checksum(t: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums of ``t``'s raw bits: of its words, and of its words
+    weighted by their position (mod 65521), so that a flipped bit or two
+    swapped elements change it."""
+    words = t.detach().contiguous().reshape(-1).view(_BITS[t.element_size()]).to(torch.int64)
+    weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return torch.stack([words.sum(), (words * weights).sum()])
+
+
 def state_checksum(model: nn.Module, select: Optional[Callable[[str], bool]] = None) -> torch.Tensor:
-    """Two int64 sums of the raw bits of each tensor of the state dict (those
-    whose name ``select`` accepts): of the words, and of the words weighted
-    by their position (mod 65521), so that a flipped bit or two swapped
-    elements change it."""
-    sums = []
-    for name, t in model.state_dict().items():
-        if select is not None and not select(name):
-            continue
-        words = t.detach().reshape(-1).view(_BITS[t.element_size()]).to(torch.int64)
-        weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
-        sums += [words.sum(), (words * weights).sum()]
-    return torch.stack(sums)
+    """``tensor_checksum`` of each tensor of the state dict whose name
+    ``select`` accepts, back to back."""
+    sums = [tensor_checksum(t) for name, t in model.state_dict().items() if select is None or select(name)]
+    return torch.cat(sums) if sums else torch.zeros(0, dtype=torch.int64)
 
 
-def _check_equal(model: nn.Module, group, what: str, select=None) -> None:
-    c = state_checksum(model, select)
+def check_equal(c: torch.Tensor, group, what: str) -> None:
+    """Raise unless the checksum ``c`` is equal on every rank of ``group``:
+    one MAX all-reduce of ``[c, -c]`` gives each entry's largest and
+    smallest value across the ranks."""
     if not len(c):
         return
     both = torch.cat([c, -c]).to(distributed.small_tensor_device(group, c.device))
@@ -117,16 +120,16 @@ def _check_equal(model: nn.Module, group, what: str, select=None) -> None:
 
 def check_replicated(model: nn.Module, group, what: str = "state", mesh: Optional[Mesh2D] = None) -> None:
     """Raise unless every rank of ``group`` holds the same state, bit for bit
-    (``state_checksum``): one MAX all-reduce of ``[checksum, -checksum]``
-    gives the largest and smallest value of each entry across ranks.
+    (``state_checksum``, ``check_equal``).
 
     Under a ``mesh`` (tensor parallelism) a leaf is one of two classes: a
     replicated leaf is equal on every rank of ``mesh.world``, a shard of the
     classifier head (``parallel/gspmd.py``) on every rank of its data group."""
     if mesh is None:
-        _check_equal(model, group, what)
+        check_equal(state_checksum(model), group, what)
         return
     from maskrcnn_tf2_tpu_torch.parallel.gspmd import shard_dim
 
-    _check_equal(model, mesh.world, what, lambda name: shard_dim(name) is None)
-    _check_equal(model, mesh.data_group, f"{what} (the head's shards)", lambda name: shard_dim(name) is not None)
+    check_equal(state_checksum(model, lambda name: shard_dim(name) is None), mesh.world, what)
+    check_equal(state_checksum(model, lambda name: shard_dim(name) is not None), mesh.data_group,
+                f"{what} (the head's shards)")

@@ -127,7 +127,7 @@ def _loss(model: MaskRCNN, batch: Batch, draws: Mapping[str, torch.Tensor], conf
         total, losses = compute_losses(outputs, rpn.match, rpn.deltas, active, config)
     else:  # each data rank's share of the global-batch losses, times n_data: the world mean is their sum
         total, losses = compute_losses(outputs, rpn.match, rpn.deltas, active, config,
-                                       reduce_count=lambda n: gspmd.sum_over(n, mesh.data_group))
+                                       reduce_count=lambda n: distributed.sum_over(n, mesh.data_group))
         total, losses = total * mesh.n_data, {k: v * mesh.n_data for k, v in losses.items()}
     if mesh is None:
         l2 = l2_reg_loss(model, config.weight_decay, config.l2_reg_batchnorm, _frozen_prefixes(config))
@@ -138,7 +138,7 @@ def _loss(model: MaskRCNN, batch: Batch, draws: Mapping[str, torch.Tensor], conf
                      select=lambda name: name not in sizes)
     l2_shard = l2_reg_loss(model, config.weight_decay, config.l2_reg_batchnorm, _frozen_prefixes(config),
                            select=lambda name: name in sizes, sizes=sizes)
-    losses["l2_loss"] = l2.detach() + gspmd.sum_over(l2_shard, mesh.model_group)
+    losses["l2_loss"] = l2.detach() + distributed.sum_over(l2_shard, mesh.model_group)
     return total + l2 + l2_shard, losses
 
 
@@ -171,13 +171,6 @@ def fused_all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> List[torch.
     return out
 
 
-def _any_not_finite(finite: torch.Tensor, group) -> torch.Tensor:
-    """True where ``finite`` is False on some rank of ``group`` (one sum)."""
-    bad = (~finite).to(torch.float32).reshape(1).to(distributed.small_tensor_device(group, finite.device))
-    tdist.all_reduce(bad, group=group)
-    return bad.to(finite.device).reshape(()) > 0
-
-
 def make_train_step(config: MaskRCNNConfig, group=None, mesh=None):
     """``train_step(state, batch, rng=None, draws=None) -> (state, losses)``.
 
@@ -205,6 +198,9 @@ def make_train_step(config: MaskRCNNConfig, group=None, mesh=None):
     if config.nonfinite_guard not in ("off", "loss", "full"):
         raise ValueError(f"nonfinite_guard {config.nonfinite_guard!r}")
     opt = build_optimizer(config)
+    if mesh is not None and config.clipnorm is not None:  # each shard's squares counted once over its model group
+        shards = gspmd.shard_indices(MaskRCNN(config, device="meta"))
+        opt = build_optimizer(config, gspmd.sum_squares_fn(shards, mesh))
 
     def train_step(state: TrainState, batch: Batch, rng: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, torch.Tensor]] = None):
@@ -223,7 +219,6 @@ def make_train_step(config: MaskRCNNConfig, group=None, mesh=None):
         losses = {k: v.detach() for k, v in losses.items()}
         if preempt is not None:
             losses["preempt"] = preempt.detach().to(torch.float32).max()
-        opt_step = opt
         if mesh is not None:
             total = losses["loss_sum"] + losses["l2_loss"]  # every shard's L2 term
             shards = gspmd.shard_indices(model)
@@ -238,8 +233,6 @@ def make_train_step(config: MaskRCNNConfig, group=None, mesh=None):
                 grads[i] = g
             total = out[len(repl)]
             losses = dict(zip(names, out[len(repl) + 1:]))
-            if config.clipnorm is not None:
-                opt_step = build_optimizer(config, gspmd.sum_squares_fn(shards, mesh))
         elif group is not None:
             names, n = list(losses), len(grads)
             reduce_stats = stats if not config.sync_bn else []
@@ -249,14 +242,14 @@ def make_train_step(config: MaskRCNNConfig, group=None, mesh=None):
             with torch.no_grad():
                 for t, r in zip(reduce_stats, out[n + 1 + len(names):]):
                     t.copy_(r)
-        updates, new_opt_state = opt_step.update(grads, state.opt_state, params)
+        updates, new_opt_state = opt.update(grads, state.opt_state, params)
         ok = True
         if config.nonfinite_guard != "off":
             finite = torch.isfinite(total)
             if config.nonfinite_guard == "full":
                 finite = finite & torch.stack([torch.isfinite(u).all() for u in updates]).all()
             if mesh is not None:  # a shard's update can be non-finite on one model rank alone
-                finite = ~_any_not_finite(finite, mesh.world)
+                finite = distributed.sum_over((~finite).to(torch.float32), mesh.world) == 0
             ok = bool(finite)
         if ok:
             with torch.no_grad():

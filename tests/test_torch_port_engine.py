@@ -121,6 +121,29 @@ def test_detect_cli_builds_an_engine(engine_path):
     assert set(eng.metadata["kernels"]) == {"nms", "roi_align"}
 
 
+def test_engine_build_makes_no_timed_choice(monkeypatch, tmp_path):
+    """``build_engine`` compiles with Inductor's deterministic mode, besides
+    eager's roundings: no choice that changes the arithmetic is made by
+    timing, so two builds of one program generate the same kernels (ROADMAP
+    §C, C.6: on the card, builds of the flagship without it generated
+    different kernel sets)."""
+    seen = {}
+
+    class Compiled(Exception):
+        pass
+
+    def compile_and_package(program, package_path, inductor_configs):
+        seen.update(inductor_configs)
+        raise Compiled
+
+    monkeypatch.setattr(engine_mod, "export_served", lambda *args, **kwargs: None)
+    monkeypatch.setattr(torch._inductor, "aoti_compile_and_package", compile_and_package)
+    with pytest.raises(Compiled):
+        engine_mod.build_engine(MaskRCNNConfig(**TINY), {}, str(tmp_path / "tiny.engine"), device="cpu")
+    assert seen["deterministic"] is True
+    assert seen["emulate_precision_casts"] is True and seen["joint_graph_constant_folding"] is False
+
+
 def test_engine_matches_jax(engine_path, jax_infer):
     """uint8 ingress and the class-mask gather on the device, against JAX's
     jitted forward and its gather on the same uint8 images and meta."""
