@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and training step on one CUDA
-card, on every backbone of the zoo, data- and tensor-parallel, and hold its
-kernels against their plain PyTorch versions.
+card, on every backbone of the zoo, data- and tensor-parallel, with the host
+modules around them, and hold its kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -243,7 +244,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                ms, the steps' ms beside the single-process step's, the two
                predictors' forwards; ranks and replicas share one card, so
                no number is a scaling number.
-20. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
+20. last modules -- (a) phase 10's COCO directory copied with every
+               instance's counts compressed to a string, plus three 480x640
+               training images, each with a crowd mask of 60, 2,000 or 20,000
+               runs and a rectangle: every RLE mask decoded by the C decoder
+               (``native/rle.py``) equal bit for bit to the numpy decoder's
+               (``data/coco.py::rle_to_mask_plain``) and to its source runs;
+               each decoder's ms per crowd mask, the loader's images/s (4
+               threads, no cache) under each in turns and its batches equal;
+               ``auto_download`` through ``file://`` zips of that directory
+               equal to it, and a second call, with the zips gone, extracts
+               nothing; (b) ``utils/profiling.trace`` of one flagship request
+               through ``Predictor.detect``: launches (NMS, ROIAlign) exactly
+               (2, 2), and ``top_ops(device_only=True)`` lists
+               ``nms_mask_kernel``, ``nms_scan_kernel`` and
+               ``roi_align_kernel`` and only device events; the top 10
+               printed; (c) the tensor box helpers on the card against the
+               CPU: boxes from masks exact, ``norm_boxes`` and its round trip
+               through ``denorm_boxes`` within one float32 ulp. Host numbers
+               carry the card line.
+21. report  -- a ``{"kernels": [...]}`` line, the card line, and last the
                ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -252,10 +272,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gzip
 import hashlib
 import io
 import json
 import os
+import pathlib
 import re
 import shutil
 import signal
@@ -275,6 +297,7 @@ from maskrcnn_tf2_tpu_torch.cli import detect as cli_detect
 from maskrcnn_tf2_tpu_torch.cli import evaluate as cli_evaluate
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.data import augment as host_augment
+from maskrcnn_tf2_tpu_torch.data import coco as coco_mod
 from maskrcnn_tf2_tpu_torch.data import image_io
 from maskrcnn_tf2_tpu_torch.data.coco import COCO_CLASS_NAMES, CocoDataset
 from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
@@ -293,6 +316,7 @@ from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_bac
 from maskrcnn_tf2_tpu_torch.models.backbones.resnet import ResNet
 from maskrcnn_tf2_tpu_torch.models import layers, quant
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
+from maskrcnn_tf2_tpu_torch.ops import boxes as boxes_op
 from maskrcnn_tf2_tpu_torch.ops import nms as nms_op
 from maskrcnn_tf2_tpu_torch.ops import roi_align as roi_op
 from maskrcnn_tf2_tpu_torch.ops.targets import draw_uniforms
@@ -308,6 +332,7 @@ from maskrcnn_tf2_tpu_torch.train.synthetic import (resnet_state_dict, shapes_co
                                                      torchvision_mobilenet_v2_state_dict)
 from maskrcnn_tf2_tpu_torch.train.train_step import (_bn_stats, _draws, _loss, create_train_state,
                                                      fused_all_reduce_mean, make_train_step)
+from maskrcnn_tf2_tpu_torch.utils import profiling
 from maskrcnn_tf2_tpu_torch.utils.summary import count_params
 from maskrcnn_tf2_tpu_torch.utils.tb_writer import make_tb_writer
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
@@ -3224,6 +3249,255 @@ def run_tensor_parallel(device, card, root, requests, int8_state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the last modules: the C RLE decoder, auto_download, profiling, box helpers
+# ---------------------------------------------------------------------------
+
+CROWD_RUNS = (60, 2000, 20000)  # runs in each crowd-style 480x640 mask
+
+
+def encode_counts(counts):
+    """COCO's compressed counts string of run lengths (pycocotools'
+    rleToString): runs past the third delta-coded against counts[i - 2],
+    then base-48 6-bit varints, bit 5 the continuation bit."""
+    s = []
+    for i, x in enumerate(counts):
+        x = int(x)
+        if i > 2:
+            x -= int(counts[i - 2])
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not (x == 0 and not (c & 0x10)) and not (x == -1 and (c & 0x10))
+            s.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(s)
+
+
+def runs_to_mask(counts, h, w):
+    """The mask of run lengths that cover ``h * w`` exactly, by ``np.repeat``:
+    neither decoder under test."""
+    flat = np.repeat(np.arange(len(counts)) % 2, counts).astype(bool)
+    if flat.size != h * w:
+        raise AssertionError(f"runs cover {flat.size} pixels of {h * w}")
+    return flat.reshape(w, h).T
+
+
+def crowd_mask(rs, h, w, runs):
+    """Run lengths of exactly ``runs`` runs over ``h * w`` (the first a 0-run),
+    as a crowd annotation's RLE has, and their mask."""
+    cuts = np.sort(rs.choice(np.arange(1, h * w), runs - 1, replace=False))
+    counts = np.diff(np.concatenate([[0], cuts, [h * w]])).tolist()
+    return counts, runs_to_mask(counts, h, w)
+
+
+def rle_directory(src, dst, rs):
+    """Phase 10's COCO directory copied to ``dst`` with every instance's counts
+    compressed to a string, plus one 480x640 training image for each of
+    ``CROWD_RUNS`` holding a crowd annotation of that many runs and a
+    rectangle instance. Returns ``{(subset, annotation id): source mask}``
+    and the crowd masks' run lengths."""
+    shutil.copytree(src, dst)
+    sources, crowds = {}, {}
+    for subset in ("train", "val"):
+        path = os.path.join(dst, "annotations", f"instances_{subset}2017.json")
+        with open(path) as f:
+            data = json.load(f)
+        sizes = {im["id"]: (im["height"], im["width"]) for im in data["images"]}
+        for ann in data["annotations"]:
+            h, w = sizes[ann["image_id"]]
+            sources[(subset, ann["id"])] = runs_to_mask(ann["segmentation"]["counts"], h, w)
+            ann["segmentation"]["counts"] = encode_counts(ann["segmentation"]["counts"])
+        if subset == "train":
+            for runs in CROWD_RUNS:
+                image_id, h, w = max(sizes) + 1, 480, 640
+                sizes[image_id] = (h, w)
+                name = f"crowd_{runs}.jpg"
+                image_io.imwrite(os.path.join(dst, "train2017", name), smooth_image(rs, h, w), 95)
+                data["images"].append({"id": image_id, "file_name": name, "width": w, "height": h})
+                counts, mask = crowd_mask(rs, h, w, runs)
+                crowd = {"id": len(data["annotations"]) + 1, "image_id": image_id, "category_id": 1, "iscrowd": 1,
+                         "segmentation": {"counts": encode_counts(counts), "size": [h, w]},
+                         "area": int(mask.sum()), "bbox": [0, 0, w, h]}
+                box = {"id": len(data["annotations"]) + 2, "image_id": image_id, "category_id": 2, "iscrowd": 0,
+                       "segmentation": [[40.0, 30.0, 200.0, 30.0, 200.0, 150.0, 40.0, 150.0]],
+                       "area": 160 * 120, "bbox": [40, 30, 160, 120]}
+                data["annotations"] += [crowd, box]
+                sources[(subset, crowd["id"])] = mask
+                crowds[runs] = (crowd["segmentation"], h, w)
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return sources, crowds
+
+
+def per_call_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times))
+
+
+def loader_pass(ds, cfg):
+    """One epoch of the loader's 4 threads: its images/s and its batches."""
+    start = time.perf_counter()
+    batches = list(DataLoader(ds, cfg).epoch(num_workers=4))
+    return sum(len(b["images"]) for b in batches) / (time.perf_counter() - start), batches
+
+
+def tree_bytes(root):
+    return {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+            for d, _, files in os.walk(root) for f in files}
+
+
+def check_rle_decoder(card, root, loop_cfg):
+    """Phase 20(a): the C decoder against numpy and the source masks on the
+    re-encoded directory, their ms a mask and the loader's images/s under
+    each; then auto_download through file:// zips of that directory."""
+    rs = np.random.RandomState(SEED + 20)
+    dst = os.path.join(root, "coco_rle")
+    sources, crowds = rle_directory(os.path.join(root, "coco"), dst, rs)
+    n = 0
+    for subset in ("train", "val"):
+        ds = CocoDataset()
+        ds.load_coco(dst, subset)
+        for info in ds.image_info:
+            for ann in info["annotations"]:
+                if not isinstance(ann["segmentation"], dict):
+                    continue  # the crowd images' rectangles are polygons
+                h, w = info["height"], info["width"]
+                c = coco_mod.rle_to_mask(ann["segmentation"], h, w)
+                plain = coco_mod.rle_to_mask_plain(ann["segmentation"], h, w)
+                source = sources[(subset, ann["id"])]
+                if not (np.array_equal(c, plain) and np.array_equal(c, source)):
+                    raise AssertionError(f"RLE decoders: {subset} annotation {ann['id']} differs (C vs numpy "
+                                         f"{np.array_equal(c, plain)}, C vs source {np.array_equal(c, source)})")
+                n += 1
+    log(f"  (a) {n} instances of the re-encoded directory (compressed string counts; {len(CROWD_RUNS)} crowd "
+        f"masks of {CROWD_RUNS} runs at 480x640): C decoder == numpy decoder == source mask, bit for bit")
+    for runs, (seg, h, w) in crowds.items():
+        c_ms = per_call_ms(lambda: coco_mod.rle_to_mask(seg, h, w), 200)
+        np_ms = per_call_ms(lambda: coco_mod.rle_to_mask_plain(seg, h, w), 20 if runs > 2000 else 100)
+        log(f"  (a) a 480x640 mask of {runs} runs: C {c_ms:.4f} ms, numpy {np_ms:.4f} ms per mask (median; host "
+            f"clock on the card's machine, {card})")
+    train = CocoDataset()
+    train.load_coco(dst, "train")
+    train.prepare()
+    cfg = loop_cfg.replace(sample_cache_dir=None)
+    rates = {"numpy": [], "C": []}
+    batches = {}
+    for decoder in ("numpy", "C", "C", "numpy"):
+        with mock.patch.dict(os.environ):
+            os.environ.pop("MASKRCNN_TPU_NO_NATIVE_RLE", None)
+            if decoder == "numpy":
+                os.environ["MASKRCNN_TPU_NO_NATIVE_RLE"] = "1"
+            ips, out = loader_pass(train, cfg)
+        rates[decoder].append(ips)
+        batches.setdefault(decoder, out)
+    for a, b in zip(batches["numpy"], batches["C"]):
+        for key in a:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"the loader's batches differ between the decoders at {key}")
+    log(f"  (a) loader (4 threads, {len(train)} images, batches of {cfg.batch_size}, no cache) over the re-encoded "
+        f"directory: numpy decoder {[round(r, 2) for r in rates['numpy']]} images/s, C decoder "
+        f"{[round(r, 2) for r in rates['C']]} images/s (in turns numpy, C, C, numpy; equal batches; host clock on the "
+        f"card's machine, {card})")
+
+    zips = os.path.join(root, "coco_zips")
+    os.makedirs(zips)
+    for name, top in (("train2017.zip", "train2017"), ("annotations_trainval2017.zip", "annotations")):
+        shutil.make_archive(os.path.join(zips, name[:-4]), "zip", dst, top)
+    urls = tuple(pathlib.Path(zips, name).as_uri() for name in ("train2017.zip", "annotations_trainval2017.zip"))
+    fetched = os.path.join(root, "coco_fetched")
+    with mock.patch.dict(coco_mod.COCO_URLS, {("train", "2017"): urls}):
+        start = time.perf_counter()
+        coco_mod.auto_download(fetched, "train")
+        seconds = time.perf_counter() - start
+        got = tree_bytes(fetched)
+        want = {k: v for k, v in tree_bytes(dst).items() if k.startswith(("train2017", "annotations"))}
+        if got != want:
+            raise AssertionError(f"auto_download: {sorted(set(got) ^ set(want))[:5]} differ from the source")
+        shutil.rmtree(zips)  # a second call that fetched anything would now raise
+        coco_mod.auto_download(fetched, "train")
+        if tree_bytes(fetched) != want:
+            raise AssertionError("auto_download: the second call changed the directory")
+    log(f"  (a) auto_download through file:// zips of that directory: {len(got)} files in {seconds:.2f} s, equal "
+        f"to the source, the zips deleted; a second call with the sources gone extracted nothing")
+
+
+def check_profiling(device, card, root, requests):
+    """Phase 20(b): ``utils/profiling`` over one flagship request."""
+    cfg = flagship_config()
+    predictor, _ = seeded_predictor(cfg, device)
+    predictor.detect(requests[0])  # warm-up
+    zero_launch_counts()
+    trace_dir = profiling.trace(lambda: predictor.detect(requests[0]), os.path.join(root, "trace"))
+    launches = launch_counts()[:2]
+    if launches != (2, 2):
+        raise AssertionError(f"a traced request launched (NMS, ROIAlign) = {launches}; expected (2, 2)")
+    ops = profiling.top_ops(trace_dir, k=10**6, device_only=True)
+    names = [name for name, _ in ops]
+    device_names = set()
+    for path in pathlib.Path(trace_dir).rglob("*.trace.json.gz"):
+        with gzip.open(path, "rt") as f:
+            device_names |= {ev["name"] for ev in json.load(f)["traceEvents"]
+                             if ev.get("ph") == "X" and str(ev.get("cat", "")).lower() in profiling.DEVICE_CATEGORIES}
+    if not names or set(names) - device_names:
+        raise AssertionError(f"top_ops(device_only=True) lists events off the device: {sorted(set(names) - device_names)[:5]}")
+    found = {}
+    for kernel in ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel"):
+        found[kernel] = [name for name in names if re.search(rf"(^|\W){kernel}\b", name)]
+        if not found[kernel]:
+            raise AssertionError(f"top_ops lists no {kernel}: {names[:20]}")
+    busy = sum(us for _, us in ops)
+    log(f"  (b) utils/profiling.trace of one flagship request (ResNet-50-FPN, 512x512, 81 classes, bf16, 2 images) "
+        f"through Predictor.detect: launches (NMS, ROIAlign) {launches}; top_ops(device_only=True) lists "
+        f"{len(ops)} device ops, {busy / 1e3:.3f} ms in all, every one a device event, with "
+        + ", ".join(f"{k} as {v}" for k, v in found.items()) + f"; the top 10 ({card}):")
+    for name, us in ops[:10]:
+        log(f"      {us / 1e3:9.4f} ms  {name[:110]}")
+    del predictor
+
+
+def check_box_helpers(device, card):
+    """Phase 20(c): the tensor box helpers on the card against the CPU."""
+    rs = np.random.RandomState(SEED + 21)
+    shape = (512, 512)
+    y, x = (np.sort(rs.uniform(0, 512, size=(2, 1000, 2)), axis=-1) for _ in range(2))
+    pix = torch.from_numpy(np.stack([y[..., 0], x[..., 0], y[..., 1], x[..., 1]], axis=-1).astype(np.float32))
+    masks = np.zeros((16, *shape), bool)
+    for i in range(1, 16):  # mask 0 stays empty
+        y1, y2 = np.sort(rs.randint(0, 512, size=2))
+        x1, x2 = np.sort(rs.randint(0, 512, size=2))
+        masks[i, y1:y2 + 1, x1:x2 + 1] = rs.rand(y2 + 1 - y1, x2 + 1 - x1) < 0.3
+    masks = torch.from_numpy(masks)
+    cpu_boxes = boxes_op.extract_bboxes_from_masks(masks)
+    card_boxes = boxes_op.extract_bboxes_from_masks(masks.to(device)).cpu()
+    if not torch.equal(cpu_boxes, card_boxes):
+        raise AssertionError("extract_bboxes_from_masks: the card's boxes differ from the CPU's")
+    worst = {}
+    for name, fn in (("norm_boxes", lambda b: boxes_op.norm_boxes(b, shape)),
+                     ("denorm(norm_boxes)", lambda b: boxes_op.denorm_boxes(boxes_op.norm_boxes(b, shape), shape))):
+        cpu, card_out = fn(pix).numpy(), fn(pix.to(device)).cpu().numpy()
+        ulps = np.abs(cpu - card_out) / np.spacing(np.abs(cpu).astype(np.float32))
+        worst[name] = float(ulps.max())
+        if worst[name] > 1:
+            raise AssertionError(f"{name}: the card is {worst[name]} float32 ulps from the CPU")
+    log(f"  (c) box helpers on the card against the CPU: extract_bboxes_from_masks of 16 512x512 masks exact; "
+        f"norm_boxes and denorm(norm_boxes) of 2x1000 boxes within {worst} float32 ulps (held <= 1)")
+
+
+def run_last_modules(device, card, root, requests, loop_cfg):
+    """Phase 20 (see the module's docstring)."""
+    start = time.perf_counter()
+    log("== last modules: the C RLE decoder, auto_download, utils/profiling, the tensor box helpers")
+    check_rle_decoder(card, root, loop_cfg)
+    check_profiling(device, card, root, requests)
+    check_box_helpers(device, card)
+    log(f"== last modules phase done in {time.perf_counter() - start:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this script needs the card")
@@ -3319,6 +3593,8 @@ def main() -> None:
         engines = run_engine(device, card, requests, int8_state, root)
         torch.cuda.empty_cache()
         tp = run_tensor_parallel(device, card, root, requests, int8_state)
+        torch.cuda.empty_cache()
+        run_last_modules(device, card, root, requests, loop_cfg)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     extra = {name: {"eval_launches": eval_launches[i], "stream_launches": stream_launches[i],

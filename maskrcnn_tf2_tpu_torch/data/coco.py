@@ -2,17 +2,20 @@
 ``maskrcnn_tf2_tpu/data/coco.py``).
 
 Instances-JSON loading, a class registry with contiguous internal ids,
-polygon and RLE segmentations to binary masks, and the crowd -> negative
-class id convention. The RLE codec is the public COCO mask-RLE spec
-(column-major runs; compressed counts are base-48 varints) in numpy; the JAX
-package's native C decoder (``native/rle.py``) is not ported. Polygons are
-filled through ``data/raster.py``.
+polygon and RLE segmentations to binary masks, the crowd -> negative class
+id convention, and ``auto_download``. The RLE codec is the public COCO
+mask-RLE spec (column-major runs; compressed counts are base-48 varints):
+``rle_to_mask`` decodes in C (``native/rle.py``), and its numpy version,
+``rle_to_mask_plain``, runs when ``MASKRCNN_TPU_NO_NATIVE_RLE`` is set.
+Polygons are filled through ``data/raster.py``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import urllib.request
+import zipfile
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
 
@@ -20,6 +23,7 @@ import numpy as np
 
 from maskrcnn_tf2_tpu_torch.data import raster
 from maskrcnn_tf2_tpu_torch.data.dataset import SegmentationDataset
+from maskrcnn_tf2_tpu_torch.native import rle as native_rle
 
 # The 80 COCO thing classes and the background, in the order of the
 # reference's COCO_CONFIG class dict.
@@ -63,7 +67,15 @@ def _decode_rle_counts(s: str) -> List[int]:
 
 
 def rle_to_mask(rle: Dict, h: int, w: int) -> np.ndarray:
-    """RLE dict (``{"counts": str | list, "size": [h, w]}``) -> bool mask ``[h, w]``."""
+    """RLE dict (``{"counts": str | list, "size": [h, w]}``) -> bool mask
+    ``[h, w]``, decoded in C unless ``MASKRCNN_TPU_NO_NATIVE_RLE`` is set."""
+    if os.environ.get("MASKRCNN_TPU_NO_NATIVE_RLE"):
+        return rle_to_mask_plain(rle, h, w)
+    return native_rle.decode_mask(rle["counts"], h, w)
+
+
+def rle_to_mask_plain(rle: Dict, h: int, w: int) -> np.ndarray:
+    """``rle_to_mask`` in numpy, for runs that are not negative."""
     counts = rle["counts"]
     if isinstance(counts, str):
         counts = _decode_rle_counts(counts)
@@ -163,3 +175,44 @@ class CocoDataset(SegmentationDataset):
         if not masks:
             return np.zeros((h, w, 0), bool), np.zeros((0,), np.int32)
         return np.stack(masks, axis=-1), np.asarray(class_ids, np.int32)
+
+
+# (images zip, annotations zip) per (subset, year): the reference's
+# auto_download sources.
+COCO_URLS = {
+    ("train", "2017"): (
+        "http://images.cocodataset.org/zips/train2017.zip",
+        "http://images.cocodataset.org/annotations/annotations_trainval2017.zip",
+    ),
+    ("val", "2017"): (
+        "http://images.cocodataset.org/zips/val2017.zip",
+        "http://images.cocodataset.org/annotations/annotations_trainval2017.zip",
+    ),
+}
+
+
+def auto_download(dataset_dir: str, subset: str, year: str = "2017"):
+    """Download and unzip COCO's images and annotations of ``subset`` when
+    they are absent: each target already present is skipped, each zip is
+    extracted into ``dataset_dir`` and then deleted. Needs network egress."""
+    os.makedirs(dataset_dir, exist_ok=True)
+    img_dir = os.path.join(dataset_dir, f"{subset}{year}")
+    ann_file = os.path.join(dataset_dir, "annotations", f"instances_{subset}{year}.json")
+    urls = COCO_URLS.get((subset, year))
+    if urls is None:
+        raise ValueError(f"no download source for {subset}{year}")
+    for target, url in [(img_dir, urls[0]), (ann_file, urls[1])]:
+        if os.path.exists(target):
+            continue
+        zip_path = os.path.join(dataset_dir, os.path.basename(url))
+        print(f"downloading {url} ...")
+        try:
+            urllib.request.urlretrieve(url, zip_path)
+        except OSError as e:
+            raise RuntimeError(
+                f"COCO auto-download failed ({e}); this environment may have "
+                "no network egress — stage the dataset manually"
+            ) from e
+        with zipfile.ZipFile(zip_path) as zf:
+            zf.extractall(dataset_dir)
+        os.remove(zip_path)

@@ -1,11 +1,14 @@
-"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ctypes.
+"""Build the CUDA sources under ``csrc/`` with ``nvcc``, and the host C
+sources with the system C compiler, and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so``, where the hash (``source_digest``) covers
 the source and the flags, so an edited source never loads a stale library. Nothing is built at
 import time: the first call of a kernel on a CUDA tensor builds its library,
 and ``build`` builds several at once, one ``nvcc`` process per source, all
-started together.
+started together. A host source (``native/rle_ext.c``) is named the same way
+(``host_target``) and built by ``$CC``, else ``cc``, at its first call
+(``load_host``).
 
 The flags are IEEE: no ``--use_fast_math``, and ``-fmad=false`` so that
 ``a * b + c`` is not contracted into one rounding. The NMS predicate then
@@ -34,6 +37,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+CC_FLAGS = ("-std=c99", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -57,6 +61,35 @@ def source_digest(name: str) -> str:
 
 def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{source_digest(name)[:12]}.so"
+
+
+def host_target(src: Path) -> Path:
+    """``_build/lib<stem>-<hash>.so`` for a host C source: the sha256 of the
+    source and ``CC_FLAGS``."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
+
+
+def build_host(src: Path) -> Path:
+    """Compile a host C source with ``$CC`` (else ``cc``) unless its library
+    is current, and return the library's path. Raises with the compiler's
+    output on failure: there is no fallback."""
+    target = host_target(src)
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = os.environ.get("CC") or "cc"
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run([cc, *CC_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"C compiler {cc!r} could not run for {src.name}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cc} failed for {src.name} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
+    return target
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -99,15 +132,30 @@ def load(name: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            for fn_name, (argtypes, restype) in signatures.items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = restype
+            lib = _declare(ctypes.CDLL(str(_target(name))),
+                           {"kernel_error_string": ([ctypes.c_int], ctypes.c_char_p), **signatures})
             _libs[name] = lib
         return lib
+
+
+def load_host(src: Path, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
+    """The loaded library of a host C source, built first if needed, with
+    the functions of ``signatures`` declared. ``ctypes.CDLL`` releases the
+    interpreter lock for each call, so threads call it in parallel."""
+    with _lock:
+        lib = _libs.get(str(src))
+        if lib is None:
+            lib = _declare(ctypes.CDLL(str(build_host(src))), signatures)
+            _libs[str(src)] = lib
+        return lib
+
+
+def _declare(lib: ctypes.CDLL, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
+    for fn_name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,27 @@ from __future__ import annotations
 import torch
 
 
+def _norm_constants(boxes: torch.Tensor, shape):
+    h, w = shape[0], shape[1]
+    scale = torch.tensor([h - 1, w - 1, h - 1, w - 1], dtype=boxes.dtype, device=boxes.device)
+    shift = torch.tensor([0.0, 0.0, 1.0, 1.0], dtype=boxes.dtype, device=boxes.device)
+    return scale, shift
+
+
+def norm_boxes(boxes: torch.Tensor, shape) -> torch.Tensor:
+    """Pixel boxes -> normalized: ``(y2, x2)`` shifted down by one pixel, then
+    divided by ``(h - 1, w - 1)``, so ``[0, 0, h, w]`` maps to ``[0, 0, 1, 1]``.
+    Tensor by tensor: on CUDA a Python scalar divisor is a reciprocal multiply."""
+    scale, shift = _norm_constants(boxes, shape)
+    return (boxes - shift) / scale
+
+
+def denorm_boxes(boxes: torch.Tensor, shape) -> torch.Tensor:
+    """Normalized boxes -> pixel coordinates (the inverse of ``norm_boxes``)."""
+    scale, shift = _norm_constants(boxes, shape)
+    return boxes * scale + shift
+
+
 def apply_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     """Apply (dy, dx, log dh, log dw) refinements to boxes."""
     height = boxes[..., 2] - boxes[..., 0]
@@ -95,3 +116,20 @@ def encode_boxes(boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
     dh = torch.log(gt_height / height)
     dw = torch.log(gt_width / width)
     return torch.stack([dy, dx, dh, dw], dim=-1)
+
+
+def extract_bboxes_from_masks(masks: torch.Tensor) -> torch.Tensor:
+    """Tight pixel boxes ``[N, 4]`` float32 ``(y1, x1, y2 + 1, x2 + 1)`` from
+    masks ``[N, H, W]``; zeros for an empty mask."""
+    n, h, w = masks.shape
+    any_row = (masks > 0).any(dim=2)  # [N, H]
+    any_col = (masks > 0).any(dim=1)  # [N, W]
+    rows = torch.arange(h, dtype=torch.int32, device=masks.device).expand(n, h)
+    cols = torch.arange(w, dtype=torch.int32, device=masks.device).expand(n, w)
+    big = torch.iinfo(torch.int32).max
+    y1 = torch.where(any_row, rows, big).amin(dim=1)
+    y2 = torch.where(any_row, rows, -1).amax(dim=1) + 1
+    x1 = torch.where(any_col, cols, big).amin(dim=1)
+    x2 = torch.where(any_col, cols, -1).amax(dim=1) + 1
+    box = torch.stack([y1, x1, y2, x2], dim=-1).to(torch.float32)
+    return torch.where(any_row.any(dim=1, keepdim=True), box, 0.0)
