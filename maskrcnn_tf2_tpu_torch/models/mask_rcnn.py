@@ -67,6 +67,7 @@ from maskrcnn_tf2_tpu_torch.ops.image import (
 from maskrcnn_tf2_tpu_torch.ops.proposal import generate_proposals
 from maskrcnn_tf2_tpu_torch.ops.roi_align import pyramid_roi_align, pyramid_roi_align_deferred
 from maskrcnn_tf2_tpu_torch.ops.targets import detection_targets
+from maskrcnn_tf2_tpu_torch.utils import profiling
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -191,7 +192,8 @@ class MaskRCNN(nn.Module):
         self.classifier.train(train_bn)
         self.mask_head.train(train_bn)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):  # inference is not differentiated
-            mrcnn_feats, rpn_logits, rpn_probs, rpn_bbox = self._backbone_fpn_rpn(images)
+            with profiling.span("forward.backbone_fpn_rpn"):
+                mrcnn_feats, rpn_logits, rpn_probs, rpn_bbox = self._backbone_fpn_rpn(images)
             out = {"rpn_logits": rpn_logits, "rpn_probs": rpn_probs, "rpn_bbox": rpn_bbox}
             feats = [_to_nhwc(f) for f in mrcnn_feats]
             if not train:
@@ -247,23 +249,27 @@ class MaskRCNN(nn.Module):
 
     def _detect(self, feats, out, image_meta):
         cfg = self.config
-        proposals, prop_valid = self._proposals(out["rpn_probs"], out["rpn_bbox"], train=False)
-        pooled, _ = pyramid_roi_align_deferred(feats, proposals, cfg.pool_size, cfg.image_shape)
-        _, probs, deltas = self.classifier(pooled)
+        with profiling.span("forward.proposals"):
+            proposals, prop_valid = self._proposals(out["rpn_probs"], out["rpn_bbox"], train=False)
+        with profiling.span("forward.classifier"):
+            pooled, _ = pyramid_roi_align_deferred(feats, proposals, cfg.pool_size, cfg.image_shape)
+            _, probs, deltas = self.classifier(pooled)
 
-        windows = norm_window(parse_image_meta(image_meta.to(torch.float32))["window"], cfg.image_shape)
-        detections = refine_detections(
-            proposals,
-            probs,
-            deltas,
-            windows,
-            bbox_std=cfg.bbox_std_dev,
-            min_confidence=cfg.detection_min_confidence,
-            nms_threshold=cfg.detection_nms_threshold,
-            max_instances=cfg.detection_max_instances,
-        )
-        mask_pooled = pyramid_roi_align(feats, detections[..., :4], cfg.mask_pool_size, cfg.image_shape)
-        masks = self.mask_head(mask_pooled)
+        with profiling.span("forward.detection"):
+            windows = norm_window(parse_image_meta(image_meta.to(torch.float32))["window"], cfg.image_shape)
+            detections = refine_detections(
+                proposals,
+                probs,
+                deltas,
+                windows,
+                bbox_std=cfg.bbox_std_dev,
+                min_confidence=cfg.detection_min_confidence,
+                nms_threshold=cfg.detection_nms_threshold,
+                max_instances=cfg.detection_max_instances,
+            )
+        with profiling.span("forward.mask"):
+            mask_pooled = pyramid_roi_align(feats, detections[..., :4], cfg.mask_pool_size, cfg.image_shape)
+            masks = self.mask_head(mask_pooled)
         out.update({
             "rpn_rois": proposals,
             "rpn_rois_valid": prop_valid,

@@ -56,6 +56,7 @@ from torch import nn
 
 from maskrcnn_tf2_tpu_torch.kernels.int8_conv import int8_conv
 from maskrcnn_tf2_tpu_torch.models.layers import Linear, SameConv2d
+from maskrcnn_tf2_tpu_torch.utils import profiling
 
 
 class QTensor(NamedTuple):
@@ -102,9 +103,10 @@ def quantize_input(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, t
     """Per-tensor symmetric int8: ``sx = max(amax, 1e-6) / 127``, ``xq =
     clip(round(x / sx), -127, 127)``. Returns ``(xq, sx)``; ``xq`` keeps
     ``x``'s layout."""
-    sx = _div(torch.clamp_min(amax.to(device=x.device, dtype=torch.float32), 1e-6), 127.0)
-    xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127.0, 127.0).to(torch.int8)
-    return xq, sx
+    with profiling.span("quant.quantize_input"):
+        sx = _div(torch.clamp_min(amax.to(device=x.device, dtype=torch.float32), 1e-6), 127.0)
+        xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127.0, 127.0).to(torch.int8)
+        return xq, sx
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

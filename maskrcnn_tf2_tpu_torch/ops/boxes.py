@@ -9,9 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from maskrcnn_tf2_tpu_torch.utils import profiling
+
 
 def _norm_constants(boxes: torch.Tensor, shape):
     h, w = shape[0], shape[1]
+    profiling.host_sync(boxes.device, 2)  # the two constants below, copied from the host
     scale = torch.tensor([h - 1, w - 1, h - 1, w - 1], dtype=boxes.dtype, device=boxes.device)
     shift = torch.tensor([0.0, 0.0, 1.0, 1.0], dtype=boxes.dtype, device=boxes.device)
     return scale, shift
@@ -51,6 +54,8 @@ def apply_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
 def clip_boxes(boxes: torch.Tensor, window) -> torch.Tensor:
     """Clip boxes to a (wy1, wx1, wy2, wx2) window: a 4-sequence or a tensor
     broadcastable against ``boxes[..., 4]`` (e.g. per-image ``[B, 1, 4]``)."""
+    if not isinstance(window, torch.Tensor):
+        profiling.host_sync(boxes.device)  # copied from the host
     window = torch.as_tensor(window, dtype=boxes.dtype, device=boxes.device)
     wy1, wx1, wy2, wx2 = (window[..., i] for i in range(4))
 

@@ -16,6 +16,7 @@ import torch
 from maskrcnn_tf2_tpu_torch.ops.boxes import apply_box_deltas, clip_boxes
 from maskrcnn_tf2_tpu_torch.ops.nms import non_max_suppression
 from maskrcnn_tf2_tpu_torch.ops.proposal import DELTA_CLIP
+from maskrcnn_tf2_tpu_torch.utils import profiling
 
 
 @torch.no_grad()
@@ -36,6 +37,7 @@ def refine_detections(
 
     class_ids = torch.argmax(probs, dim=2)  # [B, N]; background may win
     scores = torch.gather(probs, 2, class_ids[..., None])[..., 0]
+    profiling.host_sync(rois.device)  # the constant below, copied from the host
     std = torch.tensor(bbox_std, dtype=torch.float32, device=rois.device)
     class_deltas = torch.gather(deltas, 2, class_ids[..., None, None].expand(-1, -1, 1, 4))
     class_deltas = torch.clamp(class_deltas[:, :, 0] * std, -DELTA_CLIP, DELTA_CLIP)

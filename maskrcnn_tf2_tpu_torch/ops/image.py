@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from maskrcnn_tf2_tpu_torch.utils import profiling
+
 
 def compose_image_meta(
     image_id, original_shape, image_shape, window, scale, active_class_ids
@@ -44,6 +46,7 @@ def parse_image_meta(meta: torch.Tensor) -> dict:
 def norm_window(window: torch.Tensor, image_shape) -> torch.Tensor:
     """Pixel window -> normalized, with the norm_boxes convention."""
     h, w = image_shape[0], image_shape[1]
+    profiling.host_sync(window.device, 2)  # the two constants below, copied from the host
     scale = window.new_tensor([h - 1, w - 1, h - 1, w - 1])
     shift = window.new_tensor([0.0, 0.0, 1.0, 1.0])
     return (window - shift) / scale
@@ -51,6 +54,7 @@ def norm_window(window: torch.Tensor, image_shape) -> torch.Tensor:
 
 def normalize_image(image: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8/float [0, 255] -> (x/255 - mean) / std in float32."""
+    profiling.host_sync(image.device, 2)  # mean and std, copied from the host
     mean = torch.as_tensor(mean, dtype=torch.float32, device=image.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=image.device)
     return (image.to(torch.float32) / 255.0 - mean) / std

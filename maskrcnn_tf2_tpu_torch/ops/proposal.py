@@ -15,6 +15,7 @@ import torch
 
 from maskrcnn_tf2_tpu_torch.ops.boxes import apply_box_deltas, clip_boxes
 from maskrcnn_tf2_tpu_torch.ops.nms import nms_padded_boxes
+from maskrcnn_tf2_tpu_torch.utils import profiling
 
 # Clamp log-size deltas before exp so an untrained RPN cannot produce inf
 # boxes (detectron's BBOX_XFORM_CLIP = log(1000/16)).
@@ -40,6 +41,7 @@ def generate_proposals(
     """Returns ``(proposals [B, proposal_count, 4] normalized, zero-padded,
     valid [B, proposal_count] bool)``."""
     scores = rpn_probs[..., 1].to(torch.float32)
+    profiling.host_sync(scores.device)  # the constant below, copied from the host
     std = torch.tensor(rpn_bbox_std, dtype=torch.float32, device=scores.device)
     deltas = rpn_deltas.to(torch.float32) * std
     pre = min(pre_nms_limit, scores.shape[1])

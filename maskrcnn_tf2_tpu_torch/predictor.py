@@ -30,6 +30,7 @@ from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.device import DeviceLike
 from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
+from maskrcnn_tf2_tpu_torch.utils import profiling
 
 
 class Predictor:
@@ -72,26 +73,36 @@ class Predictor:
     def _forward(self, molded: np.ndarray, metas: np.ndarray):
         """Detections ``[B, D, 6]`` and class masks ``[B, D, mh, mw]`` on the
         (first replica's) device."""
-        n = self.num_devices
-        if n == 1:
-            return self._replica_forward(self.model, molded, metas)
-        b = molded.shape[0]
-        pad = -b % n
-        if pad:
-            molded = np.concatenate([molded, np.zeros((pad,) + molded.shape[1:], molded.dtype)])
-            metas = np.concatenate([metas, np.repeat(metas[-1:], pad, 0)])
-        rows = (b + pad) // n
-        outs = list(self._pool.map(lambda i: self._replica_forward(self.replicas[i], molded[i * rows:(i + 1) * rows],
-                                                                   metas[i * rows:(i + 1) * rows]), range(n)))
-        return tuple(torch.cat([o[k].to(self.device) for o in outs])[:b] for k in range(2))
+        with profiling.span("forward") as s:
+            n = self.num_devices
+            if n == 1:
+                return self._replica_forward(self.model, molded, metas)
+            b = molded.shape[0]
+            pad = -b % n
+            if pad:
+                molded = np.concatenate([molded, np.zeros((pad,) + molded.shape[1:], molded.dtype)])
+                metas = np.concatenate([metas, np.repeat(metas[-1:], pad, 0)])
+            rows = (b + pad) // n
+
+            def replica(i):  # on the replica's thread: its spans carry the batch's id
+                with profiling.span("forward.replica", s.batch):
+                    return self._replica_forward(self.replicas[i], molded[i * rows:(i + 1) * rows],
+                                                 metas[i * rows:(i + 1) * rows])
+
+            outs = list(self._pool.map(replica, range(n)))
+            return tuple(torch.cat([o[k].to(self.device) for o in outs])[:b] for k in range(2))
 
     @staticmethod
     def _replica_forward(model: MaskRCNN, molded: np.ndarray, metas: np.ndarray):
         device = model.device
         ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
         with ctx, torch.no_grad():  # the grad mode is per thread
-            out = model(torch.from_numpy(molded).to(device), torch.from_numpy(metas).to(device))
-            return out["detections"], gather_class_masks(out)
+            with profiling.span("forward.h2d"):
+                profiling.host_sync(device, 2)  # copies from pageable memory
+                images, image_meta = torch.from_numpy(molded).to(device), torch.from_numpy(metas).to(device)
+            out = model(images, image_meta)
+            with profiling.span("forward.gather"):
+                return out["detections"], gather_class_masks(out)
 
     def _unmold(self, detections, masks, metas, shapes) -> List[Dict[str, np.ndarray]]:
         return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])
@@ -100,10 +111,14 @@ class Predictor:
     @torch.no_grad()
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Run detection on a list of RGB uint8 images of any sizes."""
-        molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(images)))
-        metas = np.stack(metas)
-        detections, masks = self._forward(np.stack(molded), metas)
-        return self._unmold(detections.cpu().numpy(), masks.cpu().numpy(), metas, [img.shape for img in images])
+        with profiling.span("detect", profiling.new_batch()):
+            molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(images)))
+            metas = np.stack(metas)
+            detections, masks = self._forward(np.stack(molded), metas)
+            with profiling.span("fetch"):
+                profiling.host_sync(detections.device, 2)
+                detections, masks = detections.cpu().numpy(), masks.cpu().numpy()
+            return self._unmold(detections, masks, metas, [img.shape for img in images])
 
     @torch.no_grad()
     def detect_stream(
@@ -122,49 +137,70 @@ class Predictor:
         drained: wait on its event, then unmold. The ragged tail is padded
         with zero images and the last meta, so the shapes never change. On a
         CPU device there is no event and the copies are plain.
+
+        Under a profiler each stage is a span of ``utils/profiling.py``
+        carrying its batch's id: ``stream.prep`` (the worker), and on this
+        thread, inside one ``stream.step`` a batch, ``stream.wait_ingress``
+        (waiting for the worker), ``stream.launch``, then for the oldest
+        batch ``stream.wait_device`` (the event wait) and ``stream.unmold``.
         """
         cuda = self.device.type == "cuda"
 
-        def prep(chunk):
-            molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(chunk)))
-            pad = batch_size - len(chunk)
-            molded = list(molded) + [np.zeros_like(molded[0])] * pad
-            return np.stack(molded), np.stack(list(metas) + [metas[-1]] * pad), [img.shape for img in chunk]
+        def prep(chunk, batch):
+            with profiling.span("stream.prep", batch):
+                molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(chunk)))
+                pad = batch_size - len(chunk)
+                molded = list(molded) + [np.zeros_like(molded[0])] * pad
+                return np.stack(molded), np.stack(list(metas) + [metas[-1]] * pad), [img.shape for img in chunk]
 
-        def prepped():
+        def submitted():
+            """``(batch id, future of its prep)`` in order, at most ``depth + 1`` ahead."""
             it = iter(images)
             ahead = collections.deque()
             with ThreadPoolExecutor(max_workers=1) as pool:
                 while True:
                     chunk = list(itertools.islice(it, batch_size))
                     if chunk:
-                        ahead.append(pool.submit(prep, chunk))
+                        batch = profiling.new_batch()
+                        ahead.append((batch, pool.submit(prep, chunk, batch)))
                     if not ahead:
                         return
                     if not chunk or len(ahead) > depth + 1:
-                        yield ahead.popleft().result()
+                        yield ahead.popleft()
 
         def launch(molded, metas):
-            detections, masks = self._forward(molded, metas)
-            if not cuda:
-                return detections.numpy(), masks.numpy(), None
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (detections, masks)]
-            for h, t in zip(host, (detections, masks)):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return host[0].numpy(), host[1].numpy(), done
+            with profiling.span("stream.launch"):
+                detections, masks = self._forward(molded, metas)
+                if not cuda:
+                    return detections.numpy(), masks.numpy(), None
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (detections, masks)]
+                for h, t in zip(host, (detections, masks)):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                return host[0].numpy(), host[1].numpy(), done
 
         def drain(entry):
-            detections, masks, done, metas, shapes = entry
+            batch, detections, masks, done, metas, shapes = entry
             if done is not None:
-                done.synchronize()
-            return self._unmold(detections, masks, metas, shapes)
+                with profiling.span("stream.wait_device", batch):
+                    profiling.host_sync(self.device)
+                    done.synchronize()
+            with profiling.span("stream.unmold", batch):
+                return self._unmold(detections, masks, metas, shapes)
 
+        # each turn of this thread is a span, so that its waits between stages
+        # (for the interpreter lock, say) fall inside one; no span is open
+        # across the yields
         inflight: List = []
-        for molded, metas, shapes in prepped():
-            inflight.append(launch(molded, metas) + (metas, shapes))
-            if len(inflight) > depth:
-                yield from drain(inflight.pop(0))
+        for batch, future in submitted():
+            with profiling.span("stream.step", batch):
+                with profiling.span("stream.wait_ingress"):
+                    molded, metas, shapes = future.result()
+                inflight.append((batch,) + launch(molded, metas) + (metas, shapes))
+                ready = drain(inflight.pop(0)) if len(inflight) > depth else []
+            yield from ready
         for entry in inflight:
-            yield from drain(entry)
+            with profiling.span("stream.step", entry[0]):
+                ready = drain(entry)
+            yield from ready

@@ -1,7 +1,6 @@
 """Where the device time of one served batch goes, on a CUDA card.
 
     python -m maskrcnn_tf2_tpu_torch.profile_serving [--batch 2] [--reps 10] [--backbone KEY] [--int8]
-    python -m maskrcnn_tf2_tpu_torch.profile_serving --stream 16 [--depth 2] [--min-confidence 0.7]
 
 Builds the flagship predictor (ResNet-50-FPN, 512x512, 81 classes, bf16,
 seeded random weights, ``detection_min_confidence=0`` so every stage works;
@@ -12,72 +11,48 @@ and reports, with the card's name and power limit:
   after warm-up; no host preprocessing or unmold);
 - one whole ``Predictor.detect`` request on the host clock, split into
   preprocessing, forward + fetch, and unmold;
-- a ``torch.profiler`` table of device time by kernel for one forward, and
-  the share of the hand-written kernels (NMS: mask and scan; ROIAlign; the
-  int8 convolution) and of idle device time.
+- a ``torch.profiler`` table of device time by kernel for one forward, the
+  share of the hand-written kernels (NMS: mask and scan; ROIAlign; the int8
+  convolution), and the forward's longest idle gaps on the device, each
+  labelled with the program's span that the host was in
+  (``utils/profiling.py::idle_gaps``).
 
 ``--int8`` calibrates the predictor on the timed batch
 (``export/quantize.py::quantize_for_inference``) and profiles the int8
 forward instead; its device time is also split into the int8 convolution's
-kernels, the quantize passes (every kernel launched inside
-``models/quant.py::quantize_input``, at a site or at a ResNet block's
-output, marked by a profiler range) and the rest.
+kernels, the quantize passes (every kernel launched inside the program's
+``mrcnn::quant.quantize_input`` range, at a site or at a ResNet block's
+output) and the rest.
 
-``--stream N`` instead serves N images of 480x640 through ``detect`` over
-chunks of ``--batch`` and through ``detect_stream`` (``--depth`` batches in
-flight), in turns (detect, stream, stream, detect), and prints both rates and
-where ``detect_stream``'s host thread waits for the card: the host time of
-the operators that synchronize (copies between host and card, scalar reads)
-with the Python line that called each, from one profiled stream.
+The waits of ``Predictor.detect_stream`` and its host syncs are the
+program's own spans and counters: run it under ``utils/profiling.trace``,
+then read ``profiling.recorded()`` and ``profiling.idle_gaps``.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
-import contextlib
 import os
 import subprocess
+import tempfile
 import time
-import warnings
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
 from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
-from maskrcnn_tf2_tpu_torch.models import quant
-from maskrcnn_tf2_tpu_torch.models.backbones import resnet
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
+from maskrcnn_tf2_tpu_torch.utils import profiling
 from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
 KERNEL_NAMES = ("nms_mask_kernel", "nms_scan_kernel", "roi_align_kernel", "int8_conv_mma_kernel",
                 "int8_conv_grouped_kernel")
-QUANTIZE_RANGE = "int8_quantize_input"
-
-
-@contextlib.contextmanager
-def marked_quantize_passes():
-    """``models/quant.py::quantize_input`` inside a profiler range, for the
-    duration: at the sites and where a ResNet block quantizes its output for
-    the next block (``models/backbones/resnet.py``)."""
-    plain = quant.quantize_input
-
-    def marked(*args, **kwargs):
-        with record_function(QUANTIZE_RANGE):
-            return plain(*args, **kwargs)
-
-    for module in (quant, resnet):
-        module.quantize_input = marked
-    try:
-        yield
-    finally:
-        for module in (quant, resnet):
-            module.quantize_input = plain
+QUANTIZE_RANGE = profiling.PREFIX + "quant.quantize_input"
 
 
 def _image(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:
@@ -92,8 +67,6 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backbone", default="resnet50", help="any key of models/backbones/factory.py::backbone_names()")
-    ap.add_argument("--stream", type=int, default=0, metavar="N", help="compare detect_stream on N images")
-    ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--min-confidence", type=float, default=0.0)
     ap.add_argument("--int8", action="store_true", help="calibrate on the timed batch and profile in int8")
     args = ap.parse_args()
@@ -105,9 +78,6 @@ def main() -> None:
                          compute_dtype="bfloat16", detection_min_confidence=args.min_confidence)
     model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(args.seed))
     rs = np.random.RandomState(args.seed)
-    if args.stream:
-        pred = Predictor(cfg, model.state_dict(), device="cuda")
-        return profile_stream(pred, [_image(rs, 480, 640) for _ in range(args.stream)], args, card)
     images = [_image(rs, 480, 640) for _ in range(args.batch)]
 
     t0 = time.perf_counter()
@@ -144,16 +114,20 @@ def main() -> None:
                for i, im in enumerate(images)]
     t_unmold = time.perf_counter() - t0
 
-    with marked_quantize_passes(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pred.model(x, m)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory(prefix="mrcnn_trace_") as trace_dir:
+        prof.export_chrome_trace(os.path.join(trace_dir, "forward.trace.json.gz"))
+        gaps = profiling.idle_gaps(trace_dir, k=10)
     events = prof.key_averages()
-    # device-side rows only (kernels, copies): operator rows repeat their time, and the
+    # device-side rows only (kernels, copies): operator rows repeat their time, and a
     # range's own device-side row spans its kernels and the gaps between them
     device_us = {e.key: e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.key != QUANTIZE_RANGE}
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                 and not e.key.startswith(profiling.PREFIX)}
     busy_us = sum(device_us.values())
 
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -163,8 +137,9 @@ def main() -> None:
     print(f"one request on the host clock: preprocess {t_pre * 1e3:.1f} ms, forward + fetch "
           f"{t_fwd * 1e3:.1f} ms, unmold {t_unmold * 1e3:.1f} ms "
           f"({sum(len(r['class_ids']) for r in results)} detections)")
-    print(f"profiled forward: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
+    print(f"profiled forward: wall {wall_us / 1e3:.3f} ms, device time {busy_us / 1e3:.3f} ms; longest idle "
+          f"gaps on the device (the program's span the host was in): "
+          + ", ".join(f"{g.label} {g.seconds * 1e3:.3f} ms" for g in gaps))
     for name in KERNEL_NAMES:
         us = sum(v for k, v in device_us.items() if name in k)
         print(f"  {name}: {us / 1e3:.3f} ms ({us / busy_us:.3%} of device time)")
@@ -177,57 +152,10 @@ def main() -> None:
         rest = busy_us - k7_us - quant_us
         print(f"int8 device time: K7 {k7_us / 1e3:.3f} ms ({k7_us / busy_us:.1%}), input-quantize passes "
               f"{quant_us / 1e3:.3f} ms in {calls} calls ({quant_us / busy_us:.1%}), the rest "
-              f"{rest / 1e3:.3f} ms ({rest / busy_us:.1%}) of {busy_us / 1e3:.3f} ms busy")
+              f"{rest / 1e3:.3f} ms ({rest / busy_us:.1%}) of {busy_us / 1e3:.3f} ms of device time")
     print("device time by kernel (one forward):")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3:9.3f} ms  {us / busy_us:7.2%}  {key[:100]}")
-
-
-SYNC_OPS = ("aten::copy_", "aten::_local_scalar_dense", "aten::item", "aten::nonzero")
-
-
-def profile_stream(pred: Predictor, images, args, card: str) -> None:
-    b = args.batch
-
-    def run_detect():
-        return [r for k in range(0, len(images), b) for r in pred.detect(images[k:k + b])]
-
-    def run_stream():
-        return list(pred.detect_stream(images, batch_size=b, depth=args.depth))
-
-    n_det = sum(len(r["class_ids"]) for r in run_detect())  # warm-up
-    run_stream()
-    rates = {"detect": [], "detect_stream": []}
-    for name, fn in (("detect", run_detect), ("detect_stream", run_stream),
-                     ("detect_stream", run_stream), ("detect", run_detect)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        rates[name].append(len(images) / (time.perf_counter() - t0))
-    # every call that makes the host wait for the card, by its line
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run_stream()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                                if "synchronizing" in str(w.message))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_stream()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"{len(images)} images of 480x640 -> 512x512, bf16, batch {b}, detection_min_confidence "
-          f"{args.min_confidence} ({n_det} detections)")
-    print(f"images/s: detect {rates['detect']}, detect_stream (depth {args.depth}) {rates['detect_stream']}")
-    print(f"synchronizing calls in one detect_stream of {-(-len(images) // b)} batches, by line:")
-    for site, count in sites.most_common(15):
-        print(f"  {count:5d}  {site}")
-    sync = {e.key: (e.cpu_time_total, e.count) for e in prof.key_averages() if e.key in SYNC_OPS}
-    print(f"profiled detect_stream: wall {wall_us / 1e3:.1f} ms; host time of the operators that can "
-          f"synchronize: " + ", ".join(f"{k} {t / 1e3:.1f} ms in {c} calls" for k, (t, c) in sync.items()))
 
 
 if __name__ == "__main__":
