@@ -27,7 +27,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                launch.
 5. serving  -- launch counts set to 0, then 4 requests of 2 uint8 images of
                other sizes than 512; latency, valid proposals and detections,
-               peak memory; every kernel must have launched twice a request.
+               peak memory; every kernel must have launched twice a request,
+               and K8 (the mask paste, ``kernels/paste_masks.py``) exactly
+               once.
+5b. paste   -- K8 on the crowd cell's shapes: 16 smooth 480x640 images
+               through ``detect_stream`` (batch 8, depth 2) with the launch
+               count set to 0 first, exactly 1 launch a batch, then 8 of them
+               through ``detect`` (1 more); each streamed result equal to the
+               host loop (``unmold_detections``) over the same forward's
+               outputs, and ``detect``'s equal to the stream's; the first
+               batch's real forward outputs pasted by K8 into device memory
+               and into pinned host memory, 0 differing bytes against
+               ``paste_masks_plain`` and no byte written past each image's
+               block; a batch with no detection writes no byte. Times: K8
+               into each (CUDA events, L2 flushed, mean of 10) beside its
+               bound (the bytes written at HBM's rate, and at the host link's
+               for pinned memory), the plain version on the host clock; the
+               host's ATen CPU capability (the exactness was pinned on
+               AVX512's paths) is printed beside the check.
 6. train capture -- one ``make_train_step`` step at the flagship's training
                configuration (batch 2, 2-8 seeded GT boxes per image, 56x56
                mini masks) records the inputs of ``greedy_nms``, ``roi_align``
@@ -88,8 +105,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                looks for it, evaluated by ``cli.evaluate.main`` on the
                synthetic COCO val set, then through ``evaluate_dataset`` over
                ``detect`` and over ``detect_stream``: equal AP dicts, exactly
-               2 NMS and 2 ROIAlign forward launches a batch of 2 on each
-               route; ``detect_stream`` (batch 2, depth 2) equal to ``detect``
+               2 NMS and 2 ROIAlign forward launches and 1 K8 launch a batch
+               of 2 on each route; ``detect_stream`` (batch 2, depth 2) equal to ``detect``
                over the same chunks, image for image; AP, seconds per image
                and images/s of both routes with the card line.
 13. detect CLI -- ``cli.detect.main`` on 2 JPEGs it is handed, with ``--out``:
@@ -239,8 +256,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                predictor on each replica's rows (one image: cuDNN's
                algorithms depend on the batch) at phase 18's and phase
                17(d)'s floors,
-               ``detect_stream`` equal to ``detect``, one int8 request with
-               K7 65 a replica. Prints the model-group all-reduces' bytes and
+               ``detect_stream`` equal to ``detect`` (K8 once a batch, on the
+               first replica), one int8 request with K7 65 a replica. Prints the model-group all-reduces' bytes and
                ms, the steps' ms beside the single-process step's, the two
                predictors' forwards; ranks and replicas share one card, so
                no number is a scaling number.
@@ -304,12 +321,13 @@ from maskrcnn_tf2_tpu_torch.data.loader import DataLoader
 from maskrcnn_tf2_tpu_torch.eval.coco_eval import evaluate_dataset
 from maskrcnn_tf2_tpu_torch.export import engine as engine_mod
 from maskrcnn_tf2_tpu_torch.export.engine import build_engine, load_engine
-from maskrcnn_tf2_tpu_torch.export.inference import process_input
+from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
 from maskrcnn_tf2_tpu_torch.export.quantize import quantize_for_inference
 from maskrcnn_tf2_tpu_torch.export.serialize import export_program, load_program
 from maskrcnn_tf2_tpu_torch.kernels import _build
 from maskrcnn_tf2_tpu_torch.kernels import int8_conv as int8_kernel
 from maskrcnn_tf2_tpu_torch.kernels import nms as nms_kernel
+from maskrcnn_tf2_tpu_torch.kernels import paste_masks as k8
 from maskrcnn_tf2_tpu_torch.kernels import roi_align as roi_kernel
 from maskrcnn_tf2_tpu_torch.models.backbones.factory import backbone_names, get_backbone
 from maskrcnn_tf2_tpu_torch.models.backbones.pretrained import convert_torch_backbone
@@ -339,6 +357,8 @@ from maskrcnn_tf2_tpu_torch.weights import lecun_init_
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+HOST_LINK_BYTES_PER_S = 64e9  # PCIe 5.0 x16, one direction: K8 writes pinned host memory over it
+CROWD_SHAPE = (480, 640)  # the benchmark's crowd cell: batch 8 of 480x640 images, 100 detections each
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 IOU_FLOPS = 13  # per box pair: 4 min/max, 2 sub, 2 clamps, 1 mul, 2 add/sub, 1 max, 1 div
 REQUEST_SIZES = [((480, 640), (427, 640)), ((640, 480), (375, 500)),
@@ -449,6 +469,103 @@ def capture_inputs(predictor: Predictor, images):
         raise RuntimeError(f"expected 2 calls of each wrapper per request, saw "
                            f"{ {k: len(v) for k, v in calls.items()} }")
     return calls
+
+
+def run_paste_masks(predictor, device, card, flush):
+    """Phase 5b: K8 on the crowd cell's shapes, through the predictor and on
+    the first batch's real forward outputs against its plain version."""
+    log(f"== paste: K8 (csrc/paste_masks.cu) on 16 crowd images of {CROWD_SHAPE[0]}x{CROWD_SHAPE[1]}, batch 8; "
+        f"host ATen CPU capability {torch.backends.cpu.get_cpu_capability()} (K8's bilinear was pinned on AVX512's)")
+    cfg = predictor.config
+    rs = np.random.RandomState(SEED + 5)
+    images = [smooth_image(rs, *CROWD_SHAPE) for _ in range(16)]
+    forwards = []
+    forward = predictor._forward
+
+    def recorded(molded, metas):
+        det, masks = forward(molded, metas)
+        forwards.append((det.clone(), masks.clone(), metas.copy()))
+        return det, masks
+
+    predictor._forward = recorded
+    try:
+        torch.cuda.synchronize()
+        k8.paste_masks.launches = 0
+        streamed = list(predictor.detect_stream(iter(images), batch_size=8, depth=2))
+        stream_launches = k8.paste_masks.launches
+        detected = predictor.detect(images[8:])
+        if (stream_launches, k8.paste_masks.launches) != (2, 3):
+            raise AssertionError(f"K8 launched {stream_launches} times over 2 streamed batches and "
+                                 f"{k8.paste_masks.launches - stream_launches} over one detect; want 1 a batch")
+    finally:
+        del predictor._forward
+
+    def equal(a, b):
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+    for start, (det, masks, metas) in zip((0, 8), forwards):
+        det, masks = det.cpu().numpy(), masks.cpu().numpy()
+        for i, img in enumerate(images[start:start + 8]):
+            want = unmold_detections(det[i], masks[i], img.shape, cfg.image_shape, metas[i][7:11])
+            if not equal(streamed[start + i], want):
+                raise AssertionError(f"detect_stream's image {start + i} differs from the host loop over its outputs")
+    if not all(equal(a, b) for a, b in zip(detected, streamed[8:])):
+        raise AssertionError("detect differs from detect_stream on the same crowd batch")
+
+    det, masks, metas = forwards[0]
+    shapes = [CROWD_SHAPE] * len(metas)
+    offsets, total, largest = k8.block_layout(shapes, det.shape[1])
+    meta_d, off_d = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (metas, offsets))
+    host = [t.cpu() for t in (det, masks, meta_d, off_d)]
+    want = torch.full((total,), 0xAB, dtype=torch.uint8)
+    t0 = time.perf_counter()
+    want_kept = k8.paste_masks(*host, cfg.image_shape, want, largest).numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = want.numpy()
+    ends = [o + -(-CROWD_SHAPE[0] * CROWD_SHAPE[1] * int(k) // 16) * 16 for o, k in zip(offsets, want_kept)]
+    outs = {"device": torch.full((total,), 0xAB, dtype=torch.uint8, device=device),
+            "pinned": torch.full((total,), 0xAB, dtype=torch.uint8).pin_memory()}
+    differing = {}
+    for where, out in outs.items():
+        kept = k8.paste_masks(det, masks, meta_d, off_d, cfg.image_shape, out, largest).cpu().numpy()
+        torch.cuda.synchronize()
+        got = out.cpu().numpy()
+        if not np.array_equal(kept, want_kept):
+            raise AssertionError(f"K8 into {where} memory kept {kept.tolist()}, the plain version {want_kept.tolist()}")
+        differing[where] = sum(int((got[o:o + CROWD_SHAPE[0] * CROWD_SHAPE[1] * int(k)]
+                                    != want[o:o + CROWD_SHAPE[0] * CROWD_SHAPE[1] * int(k)]).sum())
+                               for o, k in zip(offsets, kept))
+        outside = np.ones(total, bool)
+        for o, e in zip(offsets, ends):
+            outside[o:e] = False
+        if differing[where] or (got[outside] != 0xAB).any():
+            raise AssertionError(f"K8 into {where} memory: {differing[where]} bytes differ from the plain version, "
+                                 f"{int((got[outside] != 0xAB).sum())} written past the images' blocks")
+    if int(want_kept.sum()) == 0:
+        raise AssertionError("the crowd batch kept no detection: nothing was pasted")
+    empty = torch.full((total,), 0xAB, dtype=torch.uint8).pin_memory()
+    none_kept = k8.paste_masks(torch.zeros_like(det), masks, meta_d, off_d, cfg.image_shape, empty, largest)
+    torch.cuda.synchronize()
+    if none_kept.any() or (empty.numpy() != 0xAB).any():
+        raise AssertionError("a batch with no detection wrote mask bytes")
+
+    written = sum(CROWD_SHAPE[0] * CROWD_SHAPE[1] * int(k) for k in want_kept)
+    ms = {where: kernel_ms(lambda out=out: k8.paste_masks(det, masks, meta_d, off_d, cfg.image_shape, out, largest),
+                           10, flush) for where, out in outs.items()}
+    stats = dict(stream_launches=stream_launches, masks=int(want_kept.sum()), bytes_written=written,
+                 ms=ms["device"], bound_ms=written / HBM_BYTES_PER_S * 1e3, pinned_ms=ms["pinned"],
+                 pinned_bound_ms=written / HOST_LINK_BYTES_PER_S * 1e3, plain_ms=plain_ms,
+                 host_cpu_capability=torch.backends.cpu.get_cpu_capability())
+    log(f"  detect_stream (batch 8, depth 2) and detect: K8 {stream_launches} + 1 launches for 3 batches; every "
+        f"result equal to the host loop's over the same outputs; kept masks a streamed image "
+        f"{[len(r['class_ids']) for r in streamed]}")
+    log(f"  K8 on the first batch's outputs ({stats['masks']} masks, {written / 1e6:.1f} MB): differing bytes "
+        f"against paste_masks_plain {differing} (host capability {stats['host_cpu_capability']}); no detection, no "
+        f"byte written")
+    log(f"  K8 into device memory {stats['ms']:.4f} ms (bound {stats['bound_ms']:.4f} at 3.35 TB/s), into pinned "
+        f"host memory {stats['pinned_ms']:.4f} ms (bound {stats['pinned_bound_ms']:.4f} at 64 GB/s); plain version "
+        f"{plain_ms:.1f} ms on the host ({card})")
+    return stats
 
 
 def roi_like_boxes(rs, n):
@@ -1193,14 +1310,15 @@ def run_evaluate(device, card, root, train_cfg, val):
         printed = io.StringIO()
         torch.cuda.synchronize()
         zero_launch_counts()
+        k8.paste_masks.launches = 0
         start = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             stats = run()
         seconds = time.perf_counter() - start
         launches = launch_counts()
-        if launches != (2 * batches, 2 * batches, 0):
+        if launches != (2 * batches, 2 * batches, 0) or k8.paste_masks.launches != batches:
             raise AssertionError(f"evaluate ({name}): {batches} batches launched (NMS, ROIAlign, backward) = "
-                                 f"{launches}; expected 2, 2, 0 a batch")
+                                 f"{launches} and K8 {k8.paste_masks.launches} times; expected 2, 2, 0 and 1 a batch")
         if name == "cli":
             if "WARNING" in printed.getvalue():
                 raise AssertionError("cli.evaluate found no checkpoint")
@@ -3156,8 +3274,12 @@ def dp_serving(device, card, requests, int8_state):
     if not (mean["matched"] >= ENGINE_MATCH_FLOOR and mean["all_slot_classes"] >= CROSS_MIN_CLASSES):
         raise AssertionError(f"the data-parallel predictor against the single one: {mean}")
     images = [im for req in requests for im in req]
+    k8.paste_masks.launches = 0
     stream = list(dp.detect_stream(iter(images), batch_size=2))
     want = [r for req in requests for r in dp.detect(req)]
+    if k8.paste_masks.launches != 2 * len(requests):
+        raise AssertionError(f"{2 * len(requests)} batches through the data-parallel predictor launched K8 "
+                             f"{k8.paste_masks.launches} times; want 1 a batch")
     for a, b in zip(stream, want):
         if not (np.array_equal(a["class_ids"], b["class_ids"]) and np.allclose(a["rois"], b["rois"], atol=1e-4)
                 and np.allclose(a["scores"], b["scores"], atol=1e-4)):
@@ -3507,7 +3629,7 @@ def main() -> None:
     log(f"== device: {torch.cuda.get_device_name(0)} ({card}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible")
 
-    logs = _build.build(["nms", "roi_align", "int8_conv"])
+    logs = _build.build(["nms", "roi_align", "int8_conv", "paste_masks"])
     for name, out in logs.items():
         log(f"== build {name}.cu:\n" + "\n".join("  " + ln for ln in out.strip().splitlines()))
     log(f"== build done at {time.time() - t0:.1f} s (into {_build.BUILD_DIR})")
@@ -3537,17 +3659,21 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     nms_kernel.greedy_nms.launches = 0
     roi_kernel.roi_align.launches = 0
+    k8.paste_masks.launches = 0
     latencies, all_results = [], []
     for images in requests:
-        before = (nms_kernel.greedy_nms.launches, roi_kernel.roi_align.launches)
+        before = (nms_kernel.greedy_nms.launches, roi_kernel.roi_align.launches, k8.paste_masks.launches)
         start = time.perf_counter()
         results = predictor.detect(images)  # returns host arrays: synchronized
         latencies.append((time.perf_counter() - start) * 1e3)
         all_results.append((images, results))
-        rose = (nms_kernel.greedy_nms.launches - before[0], roi_kernel.roi_align.launches - before[1])
-        if min(rose) < 2:
-            raise AssertionError(f"a request launched (nms, roi_align) = {rose} times; expected >= 2 each")
-    launches = {"nms": nms_kernel.greedy_nms.launches, "roi_align": roi_kernel.roi_align.launches}
+        rose = (nms_kernel.greedy_nms.launches - before[0], roi_kernel.roi_align.launches - before[1],
+                k8.paste_masks.launches - before[2])
+        if min(rose[:2]) < 2 or rose[2] != 1:
+            raise AssertionError(f"a request launched (nms, roi_align, paste_masks) = {rose} times; expected >= 2, "
+                                 f">= 2 and exactly 1")
+    launches = {"nms": nms_kernel.greedy_nms.launches, "roi_align": roi_kernel.roi_align.launches,
+                "paste_masks": k8.paste_masks.launches}
     peak = torch.cuda.max_memory_allocated() / 2**20
     for i, ((images, results), ms) in enumerate(zip(all_results, latencies)):
         check_results(results, images, cfg)
@@ -3561,7 +3687,9 @@ def main() -> None:
         f"{(out['detections'][..., 4] > 0).sum(1).tolist()}; peak memory {peak:.0f} MiB; "
         f"launches {launches} ({card})")
 
-    del predictor, out
+    del out
+    paste = run_paste_masks(predictor, device, card, flush)
+    del predictor
     torch.cuda.empty_cache()
 
     state, step, batch, gen, tcalls = capture_train(device)
@@ -3630,6 +3758,8 @@ def main() -> None:
              train_model_launches=loop_launches["roi_align_backward"], **bwd_stats, library_ms=None,
              **extra["roi_align_backward"]),
         k7,
+        dict(name="paste_masks", route="cuda", source="maskrcnn_tf2_tpu_torch/csrc/paste_masks.cu", replaces=None,
+             launches=launches["paste_masks"], **paste, library_ms=None),
     ]
     log(f"== done at {time.time() - t0:.1f} s; forward kernels' times per served batch of 2 images "
         f"(ms) and per training step (train_ms), the backward's per training step of 2 images (both "
@@ -3647,7 +3777,10 @@ def main() -> None:
         f"int8 flagship engine, each in a fresh process; tensor_parallel_launches: rank 0's in 3 DP1xTP2 steps, "
         f"tensor_parallel_ms and its bound: rank 0's first DP1xTP2 step; tensor_parallel_train_model_launches: "
         f"rank 0's in train_model under DP1xTP2 (3 steps, 2 eval steps); data_parallel_serving_launches: the 4 "
-        f"requests through two replicas (K7: one int8 request)")
+        f"requests through two replicas (K7: one int8 request); paste_masks (K8): launches the 4 requests', "
+        f"stream_launches the crowd phase's 2 batches of 8 through detect_stream, ms and bound_ms into device "
+        f"memory, pinned_ms and pinned_bound_ms into pinned host memory (the predictor's way), plain_ms the host "
+        f"loop, all for one crowd batch of 8 images")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

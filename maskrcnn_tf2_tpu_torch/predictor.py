@@ -2,8 +2,11 @@
 ``Predictor.detect_stream`` (counterpart of ``maskrcnn_tf2_tpu/predictor.py``).
 
 Host preprocessing -> one batched forward on the device (uint8 images go up,
-normalization happens there) -> the class-mask gather on the device -> host
-unmold.
+normalization happens there) -> the class-mask gather on the device -> on
+the card, the masks pasted into each original image by one kernel
+(``kernels/paste_masks.py``, K8) straight into pinned host memory -> host
+unmold, which then only copies each image's masks out. On a CPU device the
+host unmolds as before, one mask at a time.
 
 Data-parallel serving (``data_parallel=True``): one replica of the model on
 each device of ``devices``, the batch padded to a multiple of the replicas
@@ -21,7 +24,7 @@ import collections
 import contextlib
 import itertools
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence
+from typing import Dict, Iterable, Iterator, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,8 +32,19 @@ import torch
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
 from maskrcnn_tf2_tpu_torch.device import DeviceLike
 from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
+from maskrcnn_tf2_tpu_torch.kernels import paste_masks
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN, gather_class_masks
 from maskrcnn_tf2_tpu_torch.utils import profiling
+
+
+class Pasted(NamedTuple):
+    """One batch's masks as K8 pasted them into pinned host memory: image
+    ``i``'s ``[H0, W0, kept[i]]`` bytes at ``out[offsets[i]:]``. ``kept`` is
+    the kernel's count on the card until the batch is fetched."""
+
+    out: torch.Tensor
+    offsets: np.ndarray
+    kept: torch.Tensor
 
 
 class Predictor:
@@ -104,9 +118,39 @@ class Predictor:
             with profiling.span("forward.gather"):
                 return out["detections"], gather_class_masks(out)
 
-    def _unmold(self, detections, masks, metas, shapes) -> List[Dict[str, np.ndarray]]:
-        return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])
-                for i, shape in enumerate(shapes)]
+    def _paste(self, detections, masks, metas: np.ndarray, shapes, staging: torch.Tensor) -> Pasted:
+        """Launch K8 on the forward's outputs of the first ``len(shapes)``
+        images (the rest is the stream's padding) into ``staging``, pinned
+        host memory, replaced by a larger buffer if it is short (PyTorch's
+        caching host allocator hands a freed one back, so a buffer is pinned
+        once in the process). The meta rows and the block offsets go up from
+        pinned memory without a host wait."""
+        b, device = len(shapes), detections.device
+        pin = device.type == "cuda"
+        offsets, total, largest = paste_masks.block_layout([s[:2] for s in shapes], detections.shape[1])
+        if staging.numel() < total:
+            staging = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+        up = [torch.from_numpy(a) for a in (np.ascontiguousarray(metas[:b]), offsets)]
+        if pin:
+            up = [t.pin_memory().to(device, non_blocking=True) for t in up]
+        with profiling.span("paste"):
+            kept = paste_masks.paste_masks(detections[:b], masks[:b], up[0], up[1], self.config.image_shape,
+                                           staging[:total], largest)
+        return Pasted(staging, offsets, kept)
+
+    def _unmold(self, detections, masks, metas, shapes, pasted: Optional[Pasted] = None
+                ) -> List[Dict[str, np.ndarray]]:
+        """Host unmold of each image; with ``pasted`` (its ``kept`` on the
+        host), each image's masks are read from K8's blocks."""
+        if pasted is None:
+            return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])
+                    for i, shape in enumerate(shapes)]
+        profiling.count("unmold.device_masks", int(pasted.kept.sum()))
+        flat = pasted.out.numpy()
+        blocks = [flat[off:off + h * w * int(k)].reshape(h, w, int(k))
+                  for (h, w, *_), off, k in zip(shapes, pasted.offsets, pasted.kept)]
+        return [unmold_detections(detections[i], None, shape, self.config.image_shape, metas[i][7:11],
+                                  pasted=blocks[i]) for i, shape in enumerate(shapes)]
 
     @torch.no_grad()
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
@@ -114,11 +158,17 @@ class Predictor:
         with profiling.span("detect", profiling.new_batch()):
             molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(images)))
             metas = np.stack(metas)
+            shapes = [img.shape for img in images]
             detections, masks = self._forward(np.stack(molded), metas)
+            if detections.device.type != "cuda":
+                with profiling.span("fetch"):
+                    detections, masks = detections.numpy(), masks.numpy()
+                return self._unmold(detections, masks, metas, shapes)
+            pasted = self._paste(detections, masks, metas, shapes, torch.empty(0, dtype=torch.uint8))
             with profiling.span("fetch"):
                 profiling.host_sync(detections.device, 2)
-                detections, masks = detections.cpu().numpy(), masks.cpu().numpy()
-            return self._unmold(detections, masks, metas, [img.shape for img in images])
+                detections, kept = detections.cpu().numpy(), pasted.kept.cpu().numpy()
+            return self._unmold(detections, None, metas, shapes, pasted._replace(kept=kept))
 
     @torch.no_grad()
     def detect_stream(
@@ -131,12 +181,16 @@ class Predictor:
         Three stages: (1) ``process_input`` on one worker thread, at most
         ``depth + 1`` chunks ahead (the input is read no further ahead than
         that); (2) the forward and the class-mask gather issued from this
-        thread, their outputs copied into new pinned host tensors with
-        ``non_blocking=True`` and a CUDA event recorded after the copies, so
-        that up to ``depth`` batches stay in flight; (3) the oldest batch
-        drained: wait on its event, then unmold. The ragged tail is padded
-        with zero images and the last meta, so the shapes never change. On a
-        CPU device there is no event and the copies are plain.
+        thread, then K8, which pastes the batch's masks into its slot of a
+        ring of ``depth + 1`` pinned host buffers (reused for the whole
+        stream), the detections and the kept counts copied into new pinned
+        host tensors with ``non_blocking=True`` and a CUDA event recorded
+        after the copies, so that up to ``depth`` batches stay in flight; (3)
+        the oldest batch drained: wait on its event, then unmold, which
+        copies each image's masks out of the ring. The ragged tail is padded
+        with zero images and the last meta, so the shapes never change (K8
+        skips the padding). On a CPU device there is no event, the copies are
+        plain and the host pastes the masks.
 
         Under a profiler each stage is a span of ``utils/profiling.py``
         carrying its batch's id: ``stream.prep`` (the worker), and on this
@@ -168,39 +222,55 @@ class Predictor:
                     if not chunk or len(ahead) > depth + 1:
                         yield ahead.popleft()
 
-        def launch(molded, metas):
+        # K8's pinned ring: batch j writes slot j % (depth + 1), which batch
+        # j - depth - 1 left when it was drained, a turn before
+        ring = [torch.empty(0, dtype=torch.uint8)] * (depth + 1)
+
+        def launch(molded, metas, shapes, slot):
             with profiling.span("stream.launch"):
                 detections, masks = self._forward(molded, metas)
                 if not cuda:
-                    return detections.numpy(), masks.numpy(), None
-                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (detections, masks)]
-                for h, t in zip(host, (detections, masks)):
+                    return detections.numpy(), masks.numpy(), None, None
+                pasted = self._paste(detections, masks, metas, shapes, ring[slot])
+                ring[slot] = pasted.out
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (detections, pasted.kept)]
+                for h, t in zip(host, (detections, pasted.kept)):
                     h.copy_(t, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
-                return host[0].numpy(), host[1].numpy(), done
+                return host[0].numpy(), None, done, pasted._replace(kept=host[1].numpy())
 
         def drain(entry):
-            batch, detections, masks, done, metas, shapes = entry
+            batch, detections, masks, done, pasted, metas, shapes = entry
             if done is not None:
                 with profiling.span("stream.wait_device", batch):
                     profiling.host_sync(self.device)
                     done.synchronize()
             with profiling.span("stream.unmold", batch):
-                return self._unmold(detections, masks, metas, shapes)
+                return self._unmold(detections, masks, metas, shapes, pasted)
 
         # each turn of this thread is a span, so that its waits between stages
         # (for the interpreter lock, say) fall inside one; no span is open
         # across the yields
         inflight: List = []
-        for batch, future in submitted():
-            with profiling.span("stream.step", batch):
-                with profiling.span("stream.wait_ingress"):
-                    molded, metas, shapes = future.result()
-                inflight.append((batch,) + launch(molded, metas) + (metas, shapes))
-                ready = drain(inflight.pop(0)) if len(inflight) > depth else []
-            yield from ready
-        for entry in inflight:
-            with profiling.span("stream.step", entry[0]):
-                ready = drain(entry)
-            yield from ready
+        try:
+            for launched, (batch, future) in enumerate(submitted()):
+                with profiling.span("stream.step", batch):
+                    with profiling.span("stream.wait_ingress"):
+                        molded, metas, shapes = future.result()
+                    slot = launched % (depth + 1)
+                    inflight.append((batch,) + launch(molded, metas, shapes, slot) + (metas, shapes))
+                    ready = drain(inflight.pop(0)) if len(inflight) > depth else []
+                yield from ready
+            while inflight:
+                with profiling.span("stream.step", inflight[0][0]):
+                    ready = drain(inflight.pop(0))
+                yield from ready
+        finally:
+            # a consumer that stops early (or an error) leaves batches in
+            # flight, and K8 writes their ring slots through the host mapping,
+            # which the caching host allocator does not track: wait for them
+            # before the ring can be handed to another owner
+            for entry in inflight:
+                if entry[3] is not None:
+                    entry[3].synchronize()

@@ -1,0 +1,512 @@
+"""The mask paste of the port's serving path (``kernels/paste_masks.py``,
+K8): its plain version and the pasted path of ``unmold_detections`` against
+the host loop, the arithmetic the kernel encodes against the host's own,
+the predictor's hooks, and on the card the kernel against its plain version.
+
+Everything is held bit for bit: the benchmark's unmold check compares every
+pixel. The arithmetic the kernel encodes is written out in numpy in
+``tests/torch_port_paste_model.py``; the bilinear part of it was pinned on
+``F.interpolate`` of hosts whose ATen dispatches ``AVX512``
+(``torch.backends.cpu.get_cpu_capability()``), so that test runs only there.
+
+This file imports neither JAX nor the JAX package, so it also runs on the
+card's machine, which has no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_paste_masks.py
+"""
+
+import collections
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from maskrcnn_tf2_tpu_torch import predictor as predictor_module
+from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.export import inference
+from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
+from maskrcnn_tf2_tpu_torch.kernels import paste_masks as k8
+from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
+from maskrcnn_tf2_tpu_torch.predictor import Predictor
+from maskrcnn_tf2_tpu_torch.utils import profiling
+from maskrcnn_tf2_tpu_torch.weights import lecun_init_
+
+from torch_port_paste_model import SMALL_PATH_MAX, bilinear, pixel_boxes
+
+PINNED_CAPABILITIES = ("AVX512",)
+TINY = dict(image_shape=(64, 64, 3), image_min_dim=64, image_max_dim=64, rpn_anchor_scales=(8, 16, 24, 32, 48),
+            pre_nms_limit=128, post_nms_rois_inference=32, detection_max_instances=10, num_classes=4,
+            backbone="resnet18", top_down_pyramid_size=64, fpn_cls_fc_layers_size=64, mask_conv_channels=64,
+            compute_dtype="float32", detection_min_confidence=0.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the suite runs six test processes at once."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+# ---------------------------------------------------------------------------
+# scenes
+# ---------------------------------------------------------------------------
+
+
+def sigmoid_masks(rs, shape):
+    """Sigmoids of bf16 logits, as the mask head gives them, with some 0.5
+    plateaus and values a few ulp either side of 0.5."""
+    m = torch.sigmoid(torch.from_numpy(rs.randn(*shape).astype(np.float32) * 4).bfloat16().float()).numpy()
+    flat = m.reshape(-1, shape[-2], shape[-1])
+    for i in range(0, len(flat), 3):
+        flat[i, 4:20, 3:25] = 0.5
+        flat[i, ::3, ::2] = np.float32(0.5) + np.float32(2.0 ** -24) * rs.randint(-3, 4, flat[i, ::3, ::2].shape)
+    return m
+
+
+def window_of(shape, side):
+    """The molded window of an ``shape`` image in a ``side`` square, as
+    ``resize_image`` computes it (scale to fit, centred)."""
+    h, w = shape
+    scale = side / max(h, w)
+    rh, rw = round(h * scale), round(w * scale)
+    top, left = (side - rh) // 2, (side - rw) // 2
+    return np.array([top, left, top + rh, left + rw], np.float32)
+
+
+def meta_row(shape, side, window, classes=4):
+    row = np.zeros(12 + classes, np.float32)
+    row[1:4] = (shape[0], shape[1], 3)
+    row[4:7] = (side, side, 3)
+    row[7:11] = window
+    row[11] = 1.0
+    return row
+
+
+def scene(rs, shapes, side, d, ns, inverted=0):
+    """Detections ``[B, d, 6]`` inside each image's window (some of no area
+    in pixels, ``inverted`` upside down and mirrored, which keep drops not),
+    class 0 at ``ns[i]`` (no class 0 when ``ns[i] == d``), masks and metas."""
+    b = len(shapes)
+    det = np.zeros((b, d, 6), np.float32)
+    metas = np.stack([meta_row(s, side, window_of(s, side)) for s in shapes])
+    for i, n in enumerate(ns):
+        wy1, wx1, wy2, wx2 = metas[i, 7:11]
+        lo = np.array([wy1 / (side - 1), wx1 / (side - 1)], np.float32)
+        hi = np.array([(wy2 - 1) / (side - 1), (wx2 - 1) / (side - 1)], np.float32)
+        a, c = rs.uniform(0, 1, (2, d, 2))
+        y1x1 = lo + (hi - lo) * np.minimum(a, c)
+        y2x2 = lo + (hi - lo) * np.maximum(a, c)
+        box = np.concatenate([y1x1, y2x2], 1).astype(np.float32)
+        box[1::7, 2] = box[1::7, 0]  # no height
+        box[2::9, 3] = box[2::9, 1] + np.float32(1e-4)  # less than a pixel wide
+        for j in range(inverted):
+            box[3 + 5 * j] = box[3 + 5 * j][[2, 3, 0, 1]]
+        det[i, :, :4] = box
+        det[i, :, 4] = rs.randint(1, 4, d)
+        det[i, :, 5] = rs.uniform(0, 1, d)
+        if n < d:
+            det[i, n:, 4] = 0
+    return det, sigmoid_masks(rs, (b, d, 28, 28)), metas
+
+
+def paste_plain(det, masks, metas, shapes, side):
+    offsets, total, largest = k8.block_layout(shapes, det.shape[1])
+    out = torch.zeros(total, dtype=torch.uint8)
+    kept = k8.paste_masks(torch.from_numpy(det), torch.from_numpy(masks), torch.from_numpy(metas),
+                          torch.from_numpy(offsets), (side, side), out, largest)
+    return out.numpy(), offsets, kept.numpy()
+
+
+def blocks(flat, offsets, kept, shapes):
+    return [flat[o:o + h * w * k].reshape(h, w, k) for (h, w), o, k in zip(shapes, offsets, kept)]
+
+
+def assert_results_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# (a) the plain version and the pasted path against the host loop
+# ---------------------------------------------------------------------------
+
+CASES = {
+    "mixed": dict(shapes=[(48, 64), (64, 48)], d=20, ns=[14, 20], inverted=2),
+    "none_kept": dict(shapes=[(40, 40), (64, 64)], d=12, ns=[0, 0]),
+    "one_empty_image": dict(shapes=[(64, 64), (30, 64), (64, 17)], d=16, ns=[9, 0, 16], inverted=1),
+    "ragged_shapes": dict(shapes=[(5, 7), (64, 64), (33, 61), (2, 90), (90, 3)], d=24, ns=[24, 10, 3, 24, 7]),
+    "large": dict(shapes=[(480, 640)], d=30, ns=[30], inverted=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_paste_and_pasted_unmold_equal_the_host_loop(case):
+    """``paste_masks`` on CPU tensors, then ``unmold_detections`` given each
+    image's pasted block, equals today's ``unmold_detections`` over the 28x28
+    masks: boxes, classes, scores, every mask pixel, every dtype."""
+    spec = CASES[case]
+    rs = np.random.RandomState(sorted(CASES).index(case))
+    side = 64 if case != "large" else 512
+    det, masks, metas = scene(rs, spec["shapes"], side, spec["d"], spec["ns"], spec.get("inverted", 0))
+    flat, offsets, kept = paste_plain(det, masks, metas, spec["shapes"], side)
+    assert offsets.tolist() == sorted(offsets.tolist()) and all(o % 16 == 0 for o in offsets)
+    for i, (shape, block) in enumerate(zip(spec["shapes"], blocks(flat, offsets, kept, spec["shapes"]))):
+        want = unmold_detections(det[i], masks[i], shape, (side, side, 3), metas[i, 7:11])
+        got = unmold_detections(det[i], None, shape, (side, side, 3), metas[i, 7:11], pasted=block)
+        assert_results_equal(got, want)
+        assert kept[i] == len(want["class_ids"])
+    if case == "none_kept":
+        assert kept.tolist() == [0, 0] and not flat.any()
+    if case in ("mixed", "large"):
+        assert kept.sum() > 0
+
+
+def test_pasted_block_must_match_the_kept_detections():
+    rs = np.random.RandomState(7)
+    det, masks, metas = scene(rs, [(40, 50)], 64, 8, [8])
+    n_kept = len(unmold_detections(det[0], masks[0], (40, 50), (64, 64), metas[0, 7:11])["class_ids"])
+    with pytest.raises(RuntimeError, match="do not match"):
+        unmold_detections(det[0], None, (40, 50), (64, 64), metas[0, 7:11],
+                          pasted=np.zeros((40, 50, n_kept + 1), np.uint8))
+
+
+def test_block_layout_and_input_checks():
+    offsets, total, largest = k8.block_layout([(3, 5), (2, 2), (7, 1)], 3)
+    assert offsets.tolist() == [0, 48, 64] and total == 96 and largest == 45
+    assert k8.block_layout([], 5)[1:] == (0, 0)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        k8.block_layout([(50000, 50000)], 1)
+    det = torch.zeros(1, k8.MAX_DETECTIONS + 1, 6)
+    masks = torch.zeros(1, k8.MAX_DETECTIONS + 1, 28, 28)
+    with pytest.raises(ValueError, match="detection_max_instances"):
+        k8.paste_masks(det, masks, torch.zeros(1, 16), torch.zeros(1, dtype=torch.int64), (64, 64),
+                       torch.zeros(16, dtype=torch.uint8), 16)
+    with pytest.raises(ValueError, match="uint8"):
+        k8.paste_masks(det[:, :4], masks[:, :4], torch.zeros(1, 16), torch.zeros(1, dtype=torch.int64), (64, 64),
+                       torch.zeros(16, dtype=torch.int32), 16)
+
+
+def test_fake_implementation_gives_exact_shapes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        kept = torch.ops.maskrcnn_tf2_tpu_torch.paste_masks(
+            torch.empty(3, 10, 6), torch.empty(3, 10, 28, 28), torch.empty(3, 16), torch.empty(3, dtype=torch.int64),
+            64, 64, torch.empty(4800, dtype=torch.uint8), 1600)
+    assert kept.shape == (3,) and kept.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# (b) the box arithmetic K8 encodes against unmold_detections'
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("side", [64, 512, 1024])
+def test_box_arithmetic_equals_unmold_boxes(side):
+    """10,000 random detections over 500 windows of random original shapes,
+    inside, on and past the window's edges: ``n``, every pixel box and
+    ``keep`` as ``unmold_detections`` computes them (``unmold_boxes``), with
+    boxes that round at half a pixel among them."""
+    rs = np.random.RandomState(side)
+    for _ in range(500):
+        shape = (int(rs.randint(2, 2000)), int(rs.randint(2, 2000)))
+        window = window_of(shape, side)
+        if rs.rand() < 0.2:  # any window of two pixels or more, as a meta vector may carry
+            y, x = (np.sort(rs.choice(side + 1, 2, replace=False)) for _ in range(2))
+            window = np.array([y[0], x[0], max(y[1], y[0] + 2), max(x[1], x[0] + 2)], np.float32)
+        det = np.zeros((20, 6), np.float32)
+        lo = (window[:2] / (side - 1)).astype(np.float32)
+        hi = ((window[2:] - 1) / (side - 1)).astype(np.float32)
+        det[:, :4] = rs.uniform(-0.05, 1.05, (20, 4)) * np.tile(hi - lo, 2) + np.tile(lo, 2)
+        half = rs.rand(20) < 0.3  # land on k + 0.5 pixels in float64 before rounding
+        px = rs.randint(0, shape[0], 20) + 0.5
+        det[half, 0] = (px[half] / (shape[0] - 1) * (hi[0] - lo[0]) + lo[0]).astype(np.float32)
+        det[:, 4] = rs.randint(1, 4, 20)
+        if rs.rand() < 0.3:
+            det[rs.randint(0, 20):, 4] = 0
+        det[:, 5] = rs.uniform(0, 1, 20)
+        n, boxes, keep = pixel_boxes(det, shape, (side, side), window)
+        want_n, want_boxes, want_keep = inference.unmold_boxes(det, shape, (side, side, 3), window)
+        assert n == want_n
+        np.testing.assert_array_equal(boxes, want_boxes)
+        np.testing.assert_array_equal(keep, want_keep)
+
+
+# ---------------------------------------------------------------------------
+# (c) the bilinear arithmetic K8 encodes against F.interpolate
+# ---------------------------------------------------------------------------
+
+
+def bilinear_sizes(part):
+    """Output sizes: every (h, w) of the channels-last path (h + w <= 128), in
+    two halves; every width 2-640 and every height 2-480 twice on the
+    separable path, the other side drawn; every (h, w) within 4 of the
+    paths' border."""
+    rs = np.random.RandomState(11)
+    if part.startswith("small"):
+        pairs = [(h, w) for h in range(2, SMALL_PATH_MAX - 1) for w in range(2, SMALL_PATH_MAX + 1 - h)]
+        return pairs[int(part[-1])::2]
+    if part.startswith("widths"):
+        ws = range(2, 641)[int(part[-1])::2]
+        return [(int(rs.randint(max(2, SMALL_PATH_MAX + 1 - w), 481)), w) for w in ws for _ in range(2)]
+    if part.startswith("heights"):
+        hs = range(2, 481)[int(part[-1])::2]
+        return [(h, int(rs.randint(max(2, SMALL_PATH_MAX + 1 - h), 641))) for h in hs for _ in range(2)]
+    return [(h, s - h) for s in range(SMALL_PATH_MAX - 4, SMALL_PATH_MAX + 5) for h in range(2, s - 1)]
+
+
+@pytest.mark.parametrize("part", ["small0", "small1", "widths0", "widths1", "heights0", "heights1", "border"])
+def test_bilinear_arithmetic_equals_interpolate(part):
+    cap = torch.backends.cpu.get_cpu_capability()
+    if cap not in PINNED_CAPABILITIES:
+        pytest.skip(f"the bilinear arithmetic was pinned on ATen's {PINNED_CAPABILITIES} kernels; this host "
+                    f"dispatches {cap}")
+    rs = np.random.RandomState(len(part) + int(part[-1]) if part[-1].isdigit() else 3)
+    masks = sigmoid_masks(rs, (6, 28, 28))
+    bad = []
+    for i, (h, w) in enumerate(bilinear_sizes(part)):
+        m = masks[i % len(masks)]
+        want = F.interpolate(torch.from_numpy(m)[None, None], size=(h, w), mode="bilinear",
+                             align_corners=False)[0, 0].numpy()
+        got = bilinear(m, h, w)
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            bad.append((h, w, int((got != want).sum())))
+    assert not bad, bad[:10]
+
+
+# ---------------------------------------------------------------------------
+# (d) the predictor's hooks, which the benchmark reads
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_predictor():
+    cfg = MaskRCNNConfig(**TINY)
+    model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    with torch.no_grad():  # spread the RPN scores: saturated scores tie
+        model.rpn.rpn_class_raw.weight.mul_(0.1)
+    return Predictor(cfg, model.state_dict(), device="cpu")
+
+
+def _images():
+    rs = np.random.RandomState(4)
+    return [rs.randint(0, 256, hw + (3,)).astype(np.uint8) for hw in [(64, 64), (50, 80), (90, 60)]]
+
+
+def _recorded(fn):
+    profiling.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = fn()
+        return out, profiling.recorded()
+    finally:
+        profiling.clear()
+
+
+def test_predictor_hooks_hold_on_both_paths(tiny_predictor, monkeypatch):
+    """``_forward`` returns two tensors; ``unmold_detections`` runs once an
+    image through the ``predictor`` module, on the host loop and on the
+    pasted path (K8's plain version on CPU tensors); each ``unmold.masks``
+    span carries its image's masks as ``n``; both paths give equal results."""
+    pred = tiny_predictor
+    images = _images()
+    molded, metas = zip(*(process_input(img, pred.config, image_id=i) for i, img in enumerate(images)))
+    metas = np.stack(metas)
+    shapes = [img.shape for img in images]
+    out = pred._forward(np.stack(molded), metas)
+    assert isinstance(out, tuple) and len(out) == 2 and all(isinstance(t, torch.Tensor) for t in out)
+    detections, masks = out
+    assert tuple(detections.shape) == (3, 10, 6) and tuple(masks.shape) == (3, 10, 28, 28)
+
+    calls = collections.Counter()
+
+    def counted(*args, **kwargs):
+        calls["pasted" if kwargs.get("pasted") is not None else "host"] += 1
+        return unmold_detections(*args, **kwargs)
+
+    monkeypatch.setattr(predictor_module, "unmold_detections", counted)
+    det_np, masks_np = detections.numpy(), masks.numpy()
+    host, rec_host = _recorded(lambda: pred._unmold(det_np, masks_np, metas, shapes))
+    pasted = pred._paste(detections, masks, metas, shapes, torch.empty(0, dtype=torch.uint8))
+    pasted = pasted._replace(kept=pasted.kept.numpy())
+    device, rec_device = _recorded(lambda: pred._unmold(det_np, None, metas, shapes, pasted))
+    assert calls == {"host": 3, "pasted": 3}
+    for got, want in zip(device, host):
+        assert_results_equal(got, want)
+    n_masks = [len(r["class_ids"]) for r in host]
+    assert sum(n_masks) > 0
+    for rec in (rec_host, rec_device):
+        assert [s.n for s in rec.spans if s.name == "unmold.masks"] == n_masks
+    counts = [c for c in rec_device.counts if c.name == "unmold.device_masks"]
+    assert sum(c.n for c in counts) == sum(n_masks) and not rec_host.counts
+
+    calls.clear()
+    pred.detect(images[:2])
+    list(pred.detect_stream(iter(images), batch_size=2, depth=1))
+    assert calls == {"host": 5}  # a CPU predictor keeps the host loop
+
+
+# ---------------------------------------------------------------------------
+# on the card (skip without one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def sized_scene(rs, sizes, shape=(480, 640), side=512, d=100):
+    """Batches of ``[B, d]`` detections whose pixel boxes have the given
+    ``(h, w)`` sizes at random places in ``shape`` images: each box is
+    placed in pixels and mapped back through the window."""
+    window = window_of(shape, side)
+    lo = (window[:2] / (side - 1)).astype(np.float64)
+    span = ((window[2:] - 1) / (side - 1)).astype(np.float64) - lo
+    out = []
+    for start in range(0, len(sizes), 8 * d):
+        chunk = sizes[start:start + 8 * d]
+        b = -(-len(chunk) // d)
+        det = np.zeros((b, d, 6), np.float32)
+        for k, (h, w) in enumerate(chunk):
+            i, j = divmod(k, d)
+            y1, x1 = rs.randint(0, shape[0] - h + 1), rs.randint(0, shape[1] - w + 1)
+            p = np.array([y1, x1, y1 + h - 1, x1 + w - 1], np.float64)
+            det[i, j, :4] = lo[[0, 1, 0, 1]] + p / (np.array(shape * 2) - 1) * span[[0, 1, 0, 1]]
+            det[i, j, 4] = 1 + k % 3
+            det[i, j, 5] = 0.5
+        metas = np.stack([meta_row(shape, side, window)] * b)
+        out.append((det, sigmoid_masks(rs, (b, d, 28, 28)), metas, [shape] * b))
+    return out
+
+
+def run_k8(det, masks, metas, shapes, side, device, out_device):
+    offsets, total, largest = k8.block_layout(shapes, det.shape[1])
+    out = (torch.full((total,), 0xAB, dtype=torch.uint8, device=device) if out_device == "device"
+           else torch.full((total,), 0xAB, dtype=torch.uint8).pin_memory())
+    before = k8.paste_masks.launches
+    kept = k8.paste_masks(torch.from_numpy(det).to(device), torch.from_numpy(masks).to(device),
+                          torch.from_numpy(metas).to(device), torch.from_numpy(offsets).to(device), (side, side),
+                          out, largest)
+    torch.cuda.synchronize()
+    assert k8.paste_masks.launches == before + 1
+    return out.cpu().numpy(), offsets, kept.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["small0", "small1", "widths0", "widths1", "heights0", "heights1", "border"])
+def test_kernel_equals_plain_on_every_size(cuda, part):
+    """K8 against its plain version with 0 differing bytes, boxes of every
+    size of ``bilinear_sizes`` in 480x640 images (the crowd cell's), into
+    pinned host memory and device memory."""
+    sizes = bilinear_sizes(part)
+    rs = np.random.RandomState(5)
+    for n, (det, masks, metas, shapes) in enumerate(sized_scene(rs, sizes)):
+        want, offsets, want_kept = paste_plain(det, masks, metas, shapes, 512)
+        got, _, kept = run_k8(det, masks, metas, shapes, 512, cuda, "pinned" if n % 2 == 0 else "device")
+        np.testing.assert_array_equal(kept, want_kept)
+        for g, w in zip(blocks(got, offsets, kept, shapes), blocks(want, offsets, kept, shapes)):
+            assert np.array_equal(g, w), (part, n, int((g != w).sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_equals_plain_on_the_cases(cuda, case):
+    """The CPU cases: no area, upside down, ``n < D``, ``n = 0``, ragged
+    shapes; the bytes past each image's block are not touched."""
+    spec = CASES[case]
+    rs = np.random.RandomState(sorted(CASES).index(case))
+    side = 64 if case != "large" else 512
+    det, masks, metas = scene(rs, spec["shapes"], side, spec["d"], spec["ns"], spec.get("inverted", 0))
+    want, offsets, want_kept = paste_plain(det, masks, metas, spec["shapes"], side)
+    for where in ("pinned", "device"):
+        got, _, kept = run_k8(det, masks, metas, spec["shapes"], side, cuda, where)
+        np.testing.assert_array_equal(kept, want_kept)
+        written = np.zeros(len(got), bool)
+        for (h, w), o, k in zip(spec["shapes"], offsets, kept):
+            written[o:o + -(-h * w * k // 16) * 16] = True
+        assert (got[~written] == 0xAB).all()
+        np.testing.assert_array_equal(got[written & (want == 0) & (got != 0)], [])
+        for g, w in zip(blocks(got, offsets, kept, spec["shapes"]), blocks(want, offsets, kept, spec["shapes"])):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_no_kept_detection_writes_no_mask_byte(cuda):
+    rs = np.random.RandomState(9)
+    det, masks, metas = scene(rs, [(480, 640)] * 4, 512, 100, [0] * 4)
+    got, _, kept = run_k8(det, masks, metas, [(480, 640)] * 4, 512, cuda, "pinned")
+    assert kept.tolist() == [0] * 4 and (got == 0xAB).all()
+
+
+@pytest.fixture(scope="module")
+def crowd_predictor():
+    """The flagship's widths (ResNet-50-FPN at 512, 81 classes, bf16), seeded
+    weights, every detection kept: 100 masks an image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cfg = MaskRCNNConfig(image_shape=(512, 512, 3), num_classes=81, compute_dtype="bfloat16",
+                         detection_min_confidence=0.0)
+    model = lecun_init_(MaskRCNN(cfg, device="cpu"), torch.Generator().manual_seed(3))
+    return Predictor(cfg, model.state_dict(), device="cuda")
+
+
+def crowd_images(n, seed=0):
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = rs.uniform(0, 255, (31, 41, 3))
+        x = np.repeat(np.repeat(x, 16, axis=0), 16, axis=1)[:480, :640]
+        out.append(np.clip(x + rs.normal(0, 10, x.shape), 0, 255).astype(np.uint8))
+    return out
+
+
+@pytest.mark.gpu
+def test_stream_and_detect_equal_the_host_path_on_crowd_images(crowd_predictor):
+    """On 480x640 crowd images at batch 8: ``detect_stream`` equals the host
+    loop over the same forward's outputs and equals ``detect``; K8 launches
+    once a batch."""
+    pred = crowd_predictor
+    images = crowd_images(16)
+    forwards = []
+    forward = Predictor._forward
+
+    def recorded(self, molded, metas):
+        det, masks = forward(self, molded, metas)
+        forwards.append((det.cpu().numpy(), masks.cpu().numpy(), metas))
+        return det, masks
+
+    before = k8.paste_masks.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Predictor, "_forward", recorded)
+        streamed = list(pred.detect_stream(iter(images), batch_size=8, depth=2))
+    assert k8.paste_masks.launches == before + 2
+    detected = pred.detect(images[8:])
+    assert k8.paste_masks.launches == before + 3
+    n_masks = 0
+    for start, (det, masks, metas) in zip((0, 8), forwards):
+        for i, img in enumerate(images[start:start + 8]):
+            want = unmold_detections(det[i], masks[i], img.shape, pred.config.image_shape, metas[i][7:11])
+            n_masks += len(want["class_ids"])
+            assert_results_equal(streamed[start + i], want)
+    assert n_masks > 0
+    for got, want in zip(detected, streamed[8:]):
+        assert_results_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_stream_closed_early_waits_for_its_batches(crowd_predictor):
+    """A consumer that stops after the first result leaves batches in flight,
+    whose K8 writes the pinned ring through the host mapping: closing the
+    stream waits for them, so nothing is left queued on the card."""
+    stream = crowd_predictor.detect_stream(iter(crowd_images(24, seed=1)), batch_size=8, depth=2)
+    next(stream)
+    stream.close()
+    assert torch.cuda.current_stream().query()
