@@ -243,6 +243,14 @@ def memory_peak(device) -> int:
     return int(torch.cuda.max_memory_allocated()) if torch.device(device).type == "cuda" else 0
 
 
+def host_rss_peak() -> int:
+    """The process's peak resident host memory so far, bytes (Linux counts
+    ``ru_maxrss`` in KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reads them."""
     import subprocess

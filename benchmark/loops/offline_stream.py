@@ -7,6 +7,12 @@ stream cycles the pool in an order drawn from the seed and is fed until
 every image unmolded over the whole time, drain included. A sample of the
 stream's first forwards, drawn from the seed, is checked against the
 reference.
+
+Like an offline pass over a data set, which writes each result and lets it
+go, the loop keeps only the results of the sampled forwards' images, which
+the check reads. Every other result is checked for what the API promises,
+from its arrays' headers alone (``well_formed``), counted, and dropped, so
+that host memory does not grow with the rate or the window.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import time
 import numpy as np
 
 from benchmark import images, serving
-from benchmark.harness import Outcome, Spans, memory_peak, sync
+from benchmark.harness import Outcome, Spans, host_rss_peak, memory_peak, sync
 from benchmark.trace import Trace, mark, traced_window
 
 
@@ -26,6 +32,22 @@ def stream_order(seed: int, traffic: dict):
     rs = np.random.RandomState(np.random.SeedSequence([seed, 5]).generate_state(1)[0])
     order = rs.permutation(traffic["pool"])
     return order, sorted(rs.choice(traffic["sample_from"], traffic["sample_batches"], replace=False).tolist())
+
+
+def well_formed(res: dict, shape) -> bool:
+    """``res`` holds what a result promises for an image of ``shape``:
+    ``masks`` a bool ndarray ``[H0, W0, N]`` for the image's own ``H0, W0``,
+    and ``N`` rows of ``rois``, ``class_ids`` and ``scores``. Reads shapes
+    and types only, no mask byte."""
+    try:
+        masks = res["masks"]
+        if not (isinstance(masks, np.ndarray) and masks.dtype == np.bool_ and masks.ndim == 3
+                and masks.shape[:2] == tuple(shape[:2])):
+            return False
+        return all(isinstance(res[k], np.ndarray) and res[k].shape[:1] == masks.shape[2:]
+                   for k in ("rois", "class_ids", "scores"))
+    except (KeyError, TypeError, AttributeError):
+        return False
 
 
 def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, t0: float,
@@ -53,31 +75,41 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
     capture = serving.Capture(sample)
     spans = Spans()
     tr = Trace(spans=spans, cfg=cfg)
-    results = []
+    keep = {k * bs + b for k in sample for b in range(bs)}  # the stream indices whose results the check reads
+    kept, yielded, malformed, detections = {}, 0, 0, 0
     with capture.installed(), traced_window(tr, trace), \
             serving.stage_spans(spans):
         start = time.perf_counter()
         if trace:
             mark(tr)
         for res in predictor.detect_stream(feed(start + seconds), batch_size=bs, depth=depth):
-            results.append(res)
+            if well_formed(res, fed[yielded].shape):
+                detections += len(res["class_ids"])
+            else:
+                malformed += 1
+            if yielded in keep:
+                kept[yielded] = res
+            yielded += 1
+            del res  # the loop holds no unsampled result past its turn
         if trace:
             mark(tr)
         end = time.perf_counter()
     peak = memory_peak(device)
-    tr.work = {"images": len(results), "seconds": end - start}
+    counted = yielded - malformed
+    tr.work = {"images": counted, "seconds": end - start}
     del predictor
 
-    failed = len(fed) - len(results)
+    failed = len(fed) - yielded + malformed
     batches = {k: (fed[k * bs:(k + 1) * bs], k * bs) for k in capture.records}
-    items, unjudged = serving.items_from(capture, batches, results)
+    items, unjudged = serving.items_from(capture, batches, kept)
     values = serving.readings(cfg, weights, items, device)
     unjudged += bs * sum(k not in capture.records for k in sample)  # a sampled batch that never ran
     checks = serving.checks(values, limits, unjudged)
-    e2e = {"setup_s": setup_s, "serve_img_per_s": len(results) / (end - start)}
-    diag = {"images": len(results), "batches": capture.calls, "seconds": end - start,
-            "checked_images": len(items), "spans_ms": serving.span_medians(spans),
+    e2e = {"setup_s": setup_s, "serve_img_per_s": counted / (end - start)}
+    diag = {"images": counted, "malformed": malformed, "batches": capture.calls,
+            "seconds": end - start, "checked_images": len(items), "spans_ms": serving.span_medians(spans),
             "other_readings": {k: v for k, v in values.items() if k not in limits}, "calibration_s": calib_s,
-            "detections_per_image": float(np.mean([len(r["class_ids"]) for r in results]))}
+            "detections_per_image": detections / max(counted, 1),
+            "host_rss_peak_bytes": host_rss_peak()}
     return Outcome(e2e=e2e, attempted=len(fed), failed=failed, checks=checks, memory_peak=peak,
                    trace=tr if trace else None, diagnostics=diag)

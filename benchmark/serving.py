@@ -231,15 +231,17 @@ def checks(values: Dict[str, float], limits: Dict[str, float], missing: int) -> 
     return [Check(k, values[k], limits[k]) for k in limits] + [Check("unjudged_images", float(missing), 0.0)]
 
 
-def items_from(capture: Capture, batches: Dict[int, tuple], results: List[dict]):
+def items_from(capture: Capture, batches: Dict[int, tuple], results: Dict[int, dict]):
     """Per-image items of the captured forwards, and the number of images
-    whose outputs a forward did not give. ``batches[k]`` is forward ``k``'s
-    ``(raw images, index of its first result)``."""
+    whose outputs a forward, or whose result the stream, did not give.
+    ``batches[k]`` is forward ``k``'s ``(raw images, index of its first
+    result)``; ``results`` maps a result's index in the stream to it."""
     items, missing = [], 0
     for k, rec in sorted(capture.records.items()):
         raws, first = batches[k]
         for b, raw in enumerate(raws):
-            if any(rec[key].shape[0] <= b for key in Capture.KEYS) or len(rec["molded"]) <= b:
+            if (any(rec[key].shape[0] <= b for key in Capture.KEYS) or len(rec["molded"]) <= b
+                    or first + b not in results):
                 missing += 1
                 continue
             item = {key: rec[key][b] for key in Capture.KEYS}
