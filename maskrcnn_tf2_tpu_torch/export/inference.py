@@ -61,7 +61,7 @@ def unmold_boxes(detections: np.ndarray, original_shape, image_shape, window):
 
 def unmold_detections(
     detections: np.ndarray, masks: Optional[np.ndarray], original_shape, image_shape, window,
-    pasted: Optional[np.ndarray] = None,
+    pasted: Optional[np.ndarray] = None, batch: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
     """One image's padded outputs -> original-image-space results.
 
@@ -70,11 +70,12 @@ def unmold_detections(
     ``pasted``, when given, is the image's masks already pasted by
     ``kernels/paste_masks.py`` (``[H0, W0, N]`` bytes, 0 or 1: the
     ``Predictor``'s path on the card); they are copied into the result and
-    ``masks`` is not read. Returns
+    ``masks`` is not read. ``batch`` is the id the spans carry, for a call on
+    a worker thread, which has no outer span to take it from. Returns
     rois ``[N, 4]`` pixel int32, class_ids ``[N]``, scores ``[N]`` and masks
     ``[H0, W0, N]`` bool.
     """
-    with profiling.span("unmold") as span:
+    with profiling.span("unmold", batch) as span:
         n, boxes, keep = unmold_boxes(detections, original_shape, image_shape, window)
         class_ids = detections[:n, 4].astype(np.int32)
         boxes, scores = boxes[keep], detections[:n, 5][keep]

@@ -5,8 +5,9 @@ Host preprocessing -> one batched forward on the device (uint8 images go up,
 normalization happens there) -> the class-mask gather on the device -> on
 the card, the masks pasted into each original image by one kernel
 (``kernels/paste_masks.py``, K8) straight into pinned host memory -> host
-unmold, which then only copies each image's masks out. On a CPU device the
-host unmolds as before, one mask at a time.
+unmold, which then only copies each image's masks out, the images of a
+batch side by side on a pool of host threads. On a CPU device the host
+unmolds as before, one mask at a time.
 
 Data-parallel serving (``data_parallel=True``): one replica of the model on
 each device of ``devices``, the batch padded to a multiple of the replicas
@@ -23,7 +24,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
-from concurrent.futures import ThreadPoolExecutor
+import os
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, Iterable, Iterator, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -74,6 +76,10 @@ class Predictor:
         self.device = self.model.device
         # one long-lived thread a replica: a thread's first CUDA call sets up its cuBLAS and cuDNN handles
         self._pool = ThreadPoolExecutor(max_workers=len(self.replicas)) if len(self.replicas) > 1 else None
+        # the copies out of K8's ring, one image a task: the executor starts a thread only when a task finds
+        # none idle, so a batch of k images runs on min(k, usable CPUs) threads, kept for the predictor's life
+        self._unmold_pool = ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0)),
+                                               thread_name_prefix="unmold")
 
     def _replica(self, state_dict, device) -> MaskRCNN:
         model = MaskRCNN(self.config, device=device)
@@ -141,7 +147,11 @@ class Predictor:
     def _unmold(self, detections, masks, metas, shapes, pasted: Optional[Pasted] = None
                 ) -> List[Dict[str, np.ndarray]]:
         """Host unmold of each image; with ``pasted`` (its ``kept`` on the
-        host), each image's masks are read from K8's blocks."""
+        host), each image's masks are copied out of K8's blocks, and the
+        images of a batch of several on the unmold pool, side by side (numpy
+        lets go of the interpreter lock while it copies). Returns, or raises
+        the first error in input order, only once every copy has ended: K8
+        may then write the blocks again."""
         if pasted is None:
             return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])
                     for i, shape in enumerate(shapes)]
@@ -149,8 +159,19 @@ class Predictor:
         flat = pasted.out.numpy()
         blocks = [flat[off:off + h * w * int(k)].reshape(h, w, int(k))
                   for (h, w, *_), off, k in zip(shapes, pasted.offsets, pasted.kept)]
-        return [unmold_detections(detections[i], None, shape, self.config.image_shape, metas[i][7:11],
-                                  pasted=blocks[i]) for i, shape in enumerate(shapes)]
+
+        def one(i, batch=None):
+            return unmold_detections(detections[i], None, shapes[i], self.config.image_shape, metas[i][7:11],
+                                     pasted=blocks[i], batch=batch)
+
+        if len(shapes) == 1:
+            return [one(0)]
+        with profiling.span("unmold.pool") as s:
+            s.n = len(shapes)
+            profiling.count("unmold.pooled_images", len(shapes))
+            futures = [self._unmold_pool.submit(one, i, s.batch) for i in range(len(shapes))]
+            wait(futures)
+        return [f.result() for f in futures]
 
     @torch.no_grad()
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
@@ -187,7 +208,8 @@ class Predictor:
         host tensors with ``non_blocking=True`` and a CUDA event recorded
         after the copies, so that up to ``depth`` batches stay in flight; (3)
         the oldest batch drained: wait on its event, then unmold, which
-        copies each image's masks out of the ring. The ragged tail is padded
+        copies each image's masks out of the ring on the unmold pool's
+        threads and returns when every copy has ended. The ragged tail is padded
         with zero images and the last meta, so the shapes never change (K8
         skips the padding). On a CPU device there is no event, the copies are
         plain and the host pastes the masks.
@@ -196,7 +218,10 @@ class Predictor:
         carrying its batch's id: ``stream.prep`` (the worker), and on this
         thread, inside one ``stream.step`` a batch, ``stream.wait_ingress``
         (waiting for the worker), ``stream.launch``, then for the oldest
-        batch ``stream.wait_device`` (the event wait) and ``stream.unmold``.
+        batch ``stream.wait_device`` (the event wait) and ``stream.unmold``,
+        inside it ``unmold.pool`` (``n`` the images handed to the pool, also
+        counted as ``unmold.pooled_images``), and on the pool's threads each
+        image's ``unmold`` and ``unmold.masks``.
         """
         cuda = self.device.type == "cuda"
 

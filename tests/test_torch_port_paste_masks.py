@@ -1,7 +1,8 @@
 """The mask paste of the port's serving path (``kernels/paste_masks.py``,
 K8): its plain version and the pasted path of ``unmold_detections`` against
 the host loop, the arithmetic the kernel encodes against the host's own,
-the predictor's hooks, and on the card the kernel against its plain version.
+the predictor's hooks, the pool that copies a batch's masks out of the ring,
+and on the card the kernel against its plain version.
 
 Everything is held bit for bit: the benchmark's unmold check compares every
 pixel. The arithmetic the kernel encodes is written out in numpy in
@@ -16,6 +17,9 @@ card's machine, which has no JAX:
 """
 
 import collections
+import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -324,9 +328,11 @@ def test_predictor_hooks_hold_on_both_paths(tiny_predictor, monkeypatch):
     assert tuple(detections.shape) == (3, 10, 6) and tuple(masks.shape) == (3, 10, 28, 28)
 
     calls = collections.Counter()
+    lock = threading.Lock()  # the pasted path calls from the unmold pool's threads
 
     def counted(*args, **kwargs):
-        calls["pasted" if kwargs.get("pasted") is not None else "host"] += 1
+        with lock:
+            calls["pasted" if kwargs.get("pasted") is not None else "host"] += 1
         return unmold_detections(*args, **kwargs)
 
     monkeypatch.setattr(predictor_module, "unmold_detections", counted)
@@ -334,14 +340,25 @@ def test_predictor_hooks_hold_on_both_paths(tiny_predictor, monkeypatch):
     host, rec_host = _recorded(lambda: pred._unmold(det_np, masks_np, metas, shapes))
     pasted = pred._paste(detections, masks, metas, shapes, torch.empty(0, dtype=torch.uint8))
     pasted = pasted._replace(kept=pasted.kept.numpy())
-    device, rec_device = _recorded(lambda: pred._unmold(det_np, None, metas, shapes, pasted))
+    batch = profiling.new_batch()
+
+    def pooled():
+        with profiling.span("stream.unmold", batch):
+            return pred._unmold(det_np, None, metas, shapes, pasted)
+
+    device, rec_device = _recorded(pooled)
     assert calls == {"host": 3, "pasted": 3}
     for got, want in zip(device, host):
         assert_results_equal(got, want)
     n_masks = [len(r["class_ids"]) for r in host]
     assert sum(n_masks) > 0
-    for rec in (rec_host, rec_device):
-        assert [s.n for s in rec.spans if s.name == "unmold.masks"] == n_masks
+    assert [s.n for s in rec_host.spans if s.name == "unmold.masks"] == n_masks
+    # the pool's threads record in the order they end: each image's count, as a multiset per batch
+    by_batch = collections.defaultdict(collections.Counter)
+    for s in rec_device.spans:
+        if s.name == "unmold.masks":
+            by_batch[s.batch][s.n] += 1
+    assert by_batch == {batch: collections.Counter(n_masks)}
     counts = [c for c in rec_device.counts if c.name == "unmold.device_masks"]
     assert sum(c.n for c in counts) == sum(n_masks) and not rec_host.counts
 
@@ -349,6 +366,132 @@ def test_predictor_hooks_hold_on_both_paths(tiny_predictor, monkeypatch):
     pred.detect(images[:2])
     list(pred.detect_stream(iter(images), batch_size=2, depth=1))
     assert calls == {"host": 5}  # a CPU predictor keeps the host loop
+
+
+# ---------------------------------------------------------------------------
+# (e) the unmold pool: a batch's copies out of the ring side by side
+# ---------------------------------------------------------------------------
+
+
+def pasted_batch(k, seed):
+    """A batch of ``k`` images for the tiny predictor (side 64), the second
+    with no kept detection, pasted by K8's plain version: detections, metas,
+    the images' shapes, the ``Pasted`` the predictor reads and the results
+    of ``unmold_detections`` called inline on each image's block."""
+    rs = np.random.RandomState(seed)
+    hw = [[(64, 64), (30, 64), (64, 17), (48, 40)][i % 4] for i in range(k)]
+    det, masks, metas = scene(rs, hw, 64, 10, [0 if i == 1 else 10 for i in range(k)], inverted=1)
+    flat, offsets, kept = paste_plain(det, masks, metas, hw, 64)
+    assert kept[1] == 0 and kept.sum() > 0
+    shapes = [s + (3,) for s in hw]
+    inline = [unmold_detections(det[i], None, shapes[i], TINY["image_shape"], metas[i, 7:11], pasted=b)
+              for i, b in enumerate(blocks(flat, offsets, kept, hw))]
+    return det, metas, shapes, predictor_module.Pasted(torch.from_numpy(flat), offsets, kept), inline
+
+
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_pooled_unmold_equals_inline_in_input_order(tiny_predictor, k):
+    det, metas, shapes, pasted, inline = pasted_batch(k, seed=k)
+    got = tiny_predictor._unmold(det, None, metas, shapes, pasted)
+    assert len(got) == k
+    for g, w in zip(got, inline):
+        assert_results_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_pooled_results_share_no_byte_with_the_ring(tiny_predictor, k):
+    """K8 writes the ring again a turn later: what ``_unmold`` returned is
+    the caller's alone."""
+    det, metas, shapes, pasted, inline = pasted_batch(k, seed=10 + k)
+    got = tiny_predictor._unmold(det, None, metas, shapes, pasted)
+    ring = pasted.out.numpy()
+    assert not any(np.shares_memory(r["masks"], ring) for r in got)
+    ring[:] = 0xAB
+    for g, w in zip(got, inline):
+        assert_results_equal(g, w)
+
+
+def test_pooled_unmold_raises_after_every_copy_has_ended(tiny_predictor, monkeypatch):
+    """A block that does not match its kept detections raises out of
+    ``_unmold`` as the inline call does, and only once every other image's
+    copy has ended: none is left running over the ring."""
+    det, metas, shapes, pasted, _ = pasted_batch(6, seed=20)
+    pasted = pasted._replace(kept=pasted.kept + np.eye(1, 6, 0, dtype=pasted.kept.dtype)[0])  # image 0 one too many
+    ended = []
+
+    def slow(*args, **kwargs):
+        out = unmold_detections(*args, **kwargs)
+        time.sleep(0.05)
+        ended.append(kwargs["pasted"].shape)
+        return out
+
+    monkeypatch.setattr(predictor_module, "unmold_detections", slow)
+    with pytest.raises(RuntimeError, match="do not match"):
+        tiny_predictor._unmold(det, None, metas, shapes, pasted)
+    assert len(ended) == 5
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_pool_span_and_count(tiny_predictor, k):
+    """One image unmolds inline and opens no pool; ``k > 1`` images record
+    one ``unmold.pool`` span of ``n = k`` and ``k`` pooled images, and the
+    pool's threads' spans carry the batch's id."""
+    det, metas, shapes, pasted, _ = pasted_batch(max(k, 2), seed=30 + k)
+    batch = profiling.new_batch()
+
+    def run():
+        with profiling.span("stream.unmold", batch):
+            return tiny_predictor._unmold(det[:k], None, metas[:k], shapes[:k],
+                                          pasted._replace(offsets=pasted.offsets[:k], kept=pasted.kept[:k]))
+
+    _, rec = _recorded(run)
+    pools = [s for s in rec.spans if s.name == "unmold.pool"]
+    pooled = [c for c in rec.counts if c.name == "unmold.pooled_images"]
+    if k == 1:
+        assert not pools and not pooled
+    else:
+        assert [s.n for s in pools] == [k] and sum(c.n for c in pooled) == k
+        assert {c.batch for c in pooled} == {batch}
+    images = [s for s in rec.spans if s.name in ("unmold", "unmold.masks")]
+    assert len(images) == 2 * k and {s.batch for s in images + pools} == {batch}
+
+
+def test_pool_is_made_once_and_holds_at_most_the_usable_cpus(tiny_predictor, monkeypatch):
+    """The predictor makes its unmold pool once; it starts no thread for a
+    one-image batch and never more threads than usable CPUs (two here), and
+    keeps them from batch to batch."""
+    made = []
+
+    class Counted(predictor_module.ThreadPoolExecutor):
+        def __init__(self, *args, **kwargs):
+            made.append(kwargs.get("max_workers", args[0] if args else None))
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(predictor_module, "ThreadPoolExecutor", Counted)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0, 1})
+    pred = Predictor(tiny_predictor.config, tiny_predictor.model.state_dict(), device="cpu")
+    assert made == [2]
+    pool = pred._unmold_pool
+    det, metas, shapes, pasted, inline = pasted_batch(8, seed=40)
+    pred._unmold(det[:1], None, metas[:1], shapes[:1], pasted._replace(offsets=pasted.offsets[:1],
+                                                                       kept=pasted.kept[:1]))
+    assert not pool._threads
+    for _ in range(3):
+        for g, w in zip(pred._unmold(det, None, metas, shapes, pasted), inline):
+            assert_results_equal(g, w)
+        threads = set(pool._threads)
+        assert 1 <= len(threads) <= 2 and all(t.is_alive() for t in threads)
+    assert made == [2] and pred._unmold_pool is pool and set(pool._threads) == threads
+
+
+def test_cpu_predictor_keeps_the_host_loop_off_the_pool(tiny_predictor):
+    """``detect`` and ``detect_stream`` on a CPU device paste on the host,
+    one image after another: no pool span, no pooled image."""
+    images = _images()
+    _, rec = _recorded(lambda: (tiny_predictor.detect(images), list(tiny_predictor.detect_stream(iter(images), 2, 1))))
+    assert sum(s.name == "unmold" for s in rec.spans) == 6
+    assert not [s for s in rec.spans if s.name == "unmold.pool"]
+    assert not [c for c in rec.counts if c.name == "unmold.pooled_images"]
 
 
 # ---------------------------------------------------------------------------
