@@ -148,6 +148,35 @@ def expand_mask(bbox: np.ndarray, mini_mask: np.ndarray, image_shape) -> np.ndar
     return mask
 
 
+def unmold_boxes(detections: np.ndarray, original_shape, image_shape, window):
+    """``(n, boxes [n, 4] int32, keep)``: ``n`` the detections before the first
+    of class 0, their boxes in the original image's pixels, and the indices of
+    those of positive area, in order."""
+    zero_ix = np.where(detections[:, 4] == 0)[0]
+    n = zero_ix[0] if zero_ix.shape[0] > 0 else detections.shape[0]
+    boxes = detections[:n, :4].copy()
+    h, w = image_shape[0], image_shape[1]
+    wy1, wx1, wy2, wx2 = window
+    wy1, wx1, wy2, wx2 = wy1 / (h - 1), wx1 / (w - 1), (wy2 - 1) / (h - 1), (wx2 - 1) / (w - 1)
+    shift = np.array([wy1, wx1, wy1, wx1])
+    scale_arr = np.array([wy2 - wy1, wx2 - wx1, wy2 - wy1, wx2 - wx1])
+    boxes = (boxes - shift) / np.maximum(scale_arr, 1e-10)
+    oh, ow = original_shape[:2]
+    boxes = np.around(
+        boxes * np.array([oh - 1, ow - 1, oh - 1, ow - 1]) + np.array([0, 0, 1, 1])
+    ).astype(np.int32)
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    return n, boxes, np.where(areas > 0)[0]
+
+
+def paste_kept_masks(out: np.ndarray, masks: np.ndarray, boxes: np.ndarray, keep) -> None:
+    """``unmold_mask`` of ``masks[j]`` at ``boxes[j]`` (``unmold_boxes``'
+    pixel boxes) for the ``k``-th ``j`` of ``keep``, into ``out[:, :, k]``,
+    an ``[H0, W0, len(keep)]`` bool view."""
+    for slot, j in enumerate(keep):
+        out[:, :, slot] = unmold_mask(masks[j], boxes[j], out.shape)
+
+
 def unmold_mask(mask: np.ndarray, bbox, image_shape) -> np.ndarray:
     """Paste a low-resolution float mask into full resolution, thresholded at
     0.5."""

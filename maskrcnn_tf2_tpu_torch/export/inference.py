@@ -12,7 +12,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
-from maskrcnn_tf2_tpu_torch.data.transforms import resize_image, unmold_mask
+from maskrcnn_tf2_tpu_torch.data.transforms import paste_kept_masks, resize_image, unmold_boxes
 from maskrcnn_tf2_tpu_torch.ops.image import compose_image_meta
 from maskrcnn_tf2_tpu_torch.utils import profiling
 
@@ -38,27 +38,6 @@ def process_input(
         return molded, meta
 
 
-def unmold_boxes(detections: np.ndarray, original_shape, image_shape, window):
-    """``(n, boxes [n, 4] int32, keep)``: ``n`` the detections before the first
-    of class 0, their boxes in the original image's pixels, and the indices of
-    those of positive area, in order."""
-    zero_ix = np.where(detections[:, 4] == 0)[0]
-    n = zero_ix[0] if zero_ix.shape[0] > 0 else detections.shape[0]
-    boxes = detections[:n, :4].copy()
-    h, w = image_shape[0], image_shape[1]
-    wy1, wx1, wy2, wx2 = window
-    wy1, wx1, wy2, wx2 = wy1 / (h - 1), wx1 / (w - 1), (wy2 - 1) / (h - 1), (wx2 - 1) / (w - 1)
-    shift = np.array([wy1, wx1, wy1, wx1])
-    scale_arr = np.array([wy2 - wy1, wx2 - wx1, wy2 - wy1, wx2 - wx1])
-    boxes = (boxes - shift) / np.maximum(scale_arr, 1e-10)
-    oh, ow = original_shape[:2]
-    boxes = np.around(
-        boxes * np.array([oh - 1, ow - 1, oh - 1, ow - 1]) + np.array([0, 0, 1, 1])
-    ).astype(np.int32)
-    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
-    return n, boxes, np.where(areas > 0)[0]
-
-
 def unmold_detections(
     detections: np.ndarray, masks: Optional[np.ndarray], original_shape, image_shape, window,
     pasted: Optional[np.ndarray] = None, batch: Optional[int] = None,
@@ -69,8 +48,8 @@ def unmold_detections(
     ``[D, mh, mw]`` already gathered at each detection's class on the device.
     ``pasted``, when given, is the image's masks already pasted by
     ``kernels/paste_masks.py`` (``[H0, W0, N]`` bytes, 0 or 1: the
-    ``Predictor``'s path on the card); they are copied into the result and
-    ``masks`` is not read. ``batch`` is the id the spans carry, for a call on
+    ``Predictor``'s path); they are copied into the result and ``masks`` is
+    not read. ``batch`` is the id the spans carry, for a call on
     a worker thread, which has no outer span to take it from. Returns
     rois ``[N, 4]`` pixel int32, class_ids ``[N]``, scores ``[N]`` and masks
     ``[H0, W0, N]`` bool.
@@ -78,7 +57,6 @@ def unmold_detections(
     with profiling.span("unmold", batch) as span:
         n, boxes, keep = unmold_boxes(detections, original_shape, image_shape, window)
         class_ids = detections[:n, 4].astype(np.int32)
-        boxes, scores = boxes[keep], detections[:n, 5][keep]
         oh, ow = original_shape[:2]
 
         span.n = len(keep)
@@ -90,9 +68,8 @@ def unmold_detections(
                                        f"detections of a {oh}x{ow} image")
                 full_masks = pasted.view(bool).copy()
             else:
-                masks = masks[np.arange(n), :, :, class_ids] if masks.ndim == 4 else masks[:n]
-                masks = masks[keep]
+                masks = masks[np.arange(n), :, :, class_ids] if masks.ndim == 4 else masks
                 full_masks = np.zeros((oh, ow, len(keep)), dtype=bool)
-                for i in range(len(keep)):
-                    full_masks[:, :, i] = unmold_mask(masks[i], boxes[i], original_shape)
-        return {"rois": boxes, "class_ids": class_ids[keep], "scores": scores, "masks": full_masks}
+                paste_kept_masks(full_masks, masks, boxes, keep)
+        return {"rois": boxes[keep], "class_ids": class_ids[keep], "scores": detections[:n, 5][keep],
+                "masks": full_masks}

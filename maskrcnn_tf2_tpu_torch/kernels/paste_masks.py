@@ -3,9 +3,8 @@ its plain version.
 
 ``paste_masks`` calls the op ``maskrcnn_tf2_tpu_torch::paste_masks``, which
 launches ``csrc/paste_masks.cu`` for CUDA tensors (one launch a batch) and
-runs ``paste_masks_plain``, the host loop of ``export/inference.py::
-unmold_detections`` (without its spans), for CPU tensors; its fake implementation gives tracers
-the output shapes.
+runs ``paste_masks_plain``, the host paste of ``data/transforms.py``, for
+CPU tensors; its fake implementation gives tracers the output shapes.
 
 Both write, for image ``i`` of the batch, its masks in the layout
 ``unmold_detections`` returns, ``[H0, W0, K]`` bytes (0 or 1; ``K`` the kept
@@ -27,8 +26,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from maskrcnn_tf2_tpu_torch.data.transforms import unmold_mask
-from maskrcnn_tf2_tpu_torch.export.inference import unmold_boxes
+from maskrcnn_tf2_tpu_torch.data.transforms import paste_kept_masks, unmold_boxes
 from maskrcnn_tf2_tpu_torch.kernels import _build
 
 MAX_DETECTIONS = 1024  # slots in shared memory (kMaxDetections in csrc/paste_masks.cu)
@@ -68,8 +66,8 @@ def _check_inputs(detections, masks, meta, offsets, out) -> None:
 
 def paste_masks_plain(detections: torch.Tensor, masks: torch.Tensor, meta: torch.Tensor, offsets: torch.Tensor,
                       image_shape, out: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``paste_masks``: the host loop of ``unmold_detections``
-    (its boxes, then ``unmold_mask`` one kept detection at a time)."""
+    """Plain version of ``paste_masks``: ``unmold_boxes``, then
+    ``paste_kept_masks``, image by image."""
     _check_inputs(detections, masks, meta, offsets, out)
     kept = torch.zeros(detections.shape[0], dtype=torch.int32)
     flat = out.numpy()
@@ -77,8 +75,7 @@ def paste_masks_plain(detections: torch.Tensor, masks: torch.Tensor, meta: torch
         shape = (int(row[1]), int(row[2]))
         _, boxes, keep = unmold_boxes(det, shape, image_shape, row[7:11])
         block = flat[off:off + shape[0] * shape[1] * len(keep)].reshape(shape + (len(keep),)).view(bool)
-        for slot, j in enumerate(keep):
-            block[:, :, slot] = unmold_mask(m[j], boxes[j], shape)
+        paste_kept_masks(block, m, boxes, keep)
         kept[i] = len(keep)
     return kept
 

@@ -1,13 +1,14 @@
 """High-level inference API: ``Predictor.detect`` and the pipelined
 ``Predictor.detect_stream`` (counterpart of ``maskrcnn_tf2_tpu/predictor.py``).
 
-Host preprocessing -> one batched forward on the device (uint8 images go up,
-normalization happens there) -> the class-mask gather on the device -> on
-the card, the masks pasted into each original image by one kernel
-(``kernels/paste_masks.py``, K8) straight into pinned host memory -> host
-unmold, which then only copies each image's masks out, the images of a
-batch side by side on a pool of host threads. On a CPU device the host
-unmolds as before, one mask at a time.
+One path serves both methods on every device: ``_mold`` (host
+preprocessing) -> ``_launch``: one batched forward on the device (uint8
+images go up, normalization happens there), the class-mask gather on the
+device, the masks pasted into each original image by the op of
+``kernels/paste_masks.py`` (on the card one kernel, K8, straight into pinned
+host memory; on the CPU its plain version), the detections and the kept
+counts copied to the host behind it -> ``_unmold``, which copies each image's
+masks out, the images of a batch side by side on a pool of host threads.
 
 Data-parallel serving (``data_parallel=True``): one replica of the model on
 each device of ``devices``, the batch padded to a multiple of the replicas
@@ -40,13 +41,21 @@ from maskrcnn_tf2_tpu_torch.utils import profiling
 
 
 class Pasted(NamedTuple):
-    """One batch's masks as K8 pasted them into pinned host memory: image
-    ``i``'s ``[H0, W0, kept[i]]`` bytes at ``out[offsets[i]:]``. ``kept`` is
-    the kernel's count on the card until the batch is fetched."""
+    """One batch's masks as K8 (or its plain version) pasted them: image
+    ``i``'s ``[H0, W0, kept[i]]`` bytes at ``out[offsets[i]:]``."""
 
     out: torch.Tensor
     offsets: np.ndarray
-    kept: torch.Tensor
+    kept: np.ndarray
+
+
+class Launched(NamedTuple):
+    """A batch ``_launch`` issued: detections ``[B, D, 6]`` and ``Pasted`` in
+    host memory, final once ``done`` is reached (None on the CPU: on return)."""
+
+    detections: np.ndarray
+    pasted: Pasted
+    done: Optional[torch.cuda.Event]
 
 
 class Predictor:
@@ -124,37 +133,46 @@ class Predictor:
             with profiling.span("forward.gather"):
                 return out["detections"], gather_class_masks(out)
 
-    def _paste(self, detections, masks, metas: np.ndarray, shapes, staging: torch.Tensor) -> Pasted:
-        """Launch K8 on the forward's outputs of the first ``len(shapes)``
-        images (the rest is the stream's padding) into ``staging``, pinned
-        host memory, replaced by a larger buffer if it is short (PyTorch's
-        caching host allocator hands a freed one back, so a buffer is pinned
-        once in the process). The meta rows and the block offsets go up from
-        pinned memory without a host wait."""
+    def _mold(self, images: Sequence[np.ndarray], batch_size: Optional[int] = None):
+        """``(molded, metas, original shapes)`` of ``images``; with
+        ``batch_size``, padded to it with zero images and the last meta, so
+        that the shapes never change (the padding's masks are not pasted)."""
+        molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(images)))
+        pad = (batch_size or len(images)) - len(images)
+        molded = list(molded) + [np.zeros_like(molded[0])] * pad
+        return np.stack(molded), np.stack(list(metas) + [metas[-1]] * pad), [img.shape for img in images]
+
+    def _launch(self, molded: np.ndarray, metas: np.ndarray, shapes, staging: torch.Tensor) -> Launched:
+        """Forward a molded batch, paste the masks of its first ``len(shapes)``
+        images into ``staging`` (host memory, pinned on the card; replaced if
+        short: the caching host allocator hands a freed buffer back, so one is
+        pinned once in the process), and copy the detections and kept counts
+        to the host behind it. On the card nothing waits for the device: the
+        copies go through pinned memory and an event is recorded after them."""
+        detections, masks = self._forward(molded, metas)
         b, device = len(shapes), detections.device
-        pin = device.type == "cuda"
+        card = device.type == "cuda"
         offsets, total, largest = paste_masks.block_layout([s[:2] for s in shapes], detections.shape[1])
         if staging.numel() < total:
-            staging = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+            staging = torch.empty(total, dtype=torch.uint8, pin_memory=card)
         up = [torch.from_numpy(a) for a in (np.ascontiguousarray(metas[:b]), offsets)]
-        if pin:
+        if card:
             up = [t.pin_memory().to(device, non_blocking=True) for t in up]
         with profiling.span("paste"):
             kept = paste_masks.paste_masks(detections[:b], masks[:b], up[0], up[1], self.config.image_shape,
                                            staging[:total], largest)
-        return Pasted(staging, offsets, kept)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=card) for t in (detections, kept)]
+        for h, t in zip(host, (detections, kept)):
+            h.copy_(t, non_blocking=card)
+        done = torch.cuda.current_stream().record_event() if card else None
+        return Launched(host[0].numpy(), Pasted(staging, offsets, host[1].numpy()), done)
 
-    def _unmold(self, detections, masks, metas, shapes, pasted: Optional[Pasted] = None
-                ) -> List[Dict[str, np.ndarray]]:
-        """Host unmold of each image; with ``pasted`` (its ``kept`` on the
-        host), each image's masks are copied out of K8's blocks, and the
-        images of a batch of several on the unmold pool, side by side (numpy
-        lets go of the interpreter lock while it copies). Returns, or raises
-        the first error in input order, only once every copy has ended: K8
-        may then write the blocks again."""
-        if pasted is None:
-            return [unmold_detections(detections[i], masks[i], shape, self.config.image_shape, metas[i][7:11])
-                    for i, shape in enumerate(shapes)]
+    def _unmold(self, detections: np.ndarray, metas, shapes, pasted: Pasted) -> List[Dict[str, np.ndarray]]:
+        """Host unmold of a launched batch once it is final: each image's masks
+        copied out of its block of ``pasted``, a batch of several images side
+        by side on the unmold pool (numpy lets go of the interpreter lock while
+        it copies). Returns, or raises the first error in input order, only
+        once every copy has ended: K8 may then write the blocks again."""
         profiling.count("unmold.device_masks", int(pasted.kept.sum()))
         flat = pasted.out.numpy()
         blocks = [flat[off:off + h * w * int(k)].reshape(h, w, int(k))
@@ -177,19 +195,13 @@ class Predictor:
     def detect(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Run detection on a list of RGB uint8 images of any sizes."""
         with profiling.span("detect", profiling.new_batch()):
-            molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(images)))
-            metas = np.stack(metas)
-            shapes = [img.shape for img in images]
-            detections, masks = self._forward(np.stack(molded), metas)
-            if detections.device.type != "cuda":
-                with profiling.span("fetch"):
-                    detections, masks = detections.numpy(), masks.numpy()
-                return self._unmold(detections, masks, metas, shapes)
-            pasted = self._paste(detections, masks, metas, shapes, torch.empty(0, dtype=torch.uint8))
+            molded, metas, shapes = self._mold(images)
+            launched = self._launch(molded, metas, shapes, torch.empty(0, dtype=torch.uint8))
             with profiling.span("fetch"):
-                profiling.host_sync(detections.device, 2)
-                detections, kept = detections.cpu().numpy(), pasted.kept.cpu().numpy()
-            return self._unmold(detections, None, metas, shapes, pasted._replace(kept=kept))
+                if launched.done is not None:
+                    profiling.host_sync(self.device)
+                    launched.done.synchronize()
+            return self._unmold(launched.detections, metas, shapes, launched.pasted)
 
     @torch.no_grad()
     def detect_stream(
@@ -199,20 +211,17 @@ class Predictor:
         image, in order, equal to ``detect`` over the same chunks of
         ``batch_size``.
 
-        Three stages: (1) ``process_input`` on one worker thread, at most
-        ``depth + 1`` chunks ahead (the input is read no further ahead than
-        that); (2) the forward and the class-mask gather issued from this
-        thread, then K8, which pastes the batch's masks into its slot of a
-        ring of ``depth + 1`` pinned host buffers (reused for the whole
-        stream), the detections and the kept counts copied into new pinned
-        host tensors with ``non_blocking=True`` and a CUDA event recorded
-        after the copies, so that up to ``depth`` batches stay in flight; (3)
-        the oldest batch drained: wait on its event, then unmold, which
-        copies each image's masks out of the ring on the unmold pool's
-        threads and returns when every copy has ended. The ragged tail is padded
-        with zero images and the last meta, so the shapes never change (K8
-        skips the padding). On a CPU device there is no event, the copies are
-        plain and the host pastes the masks.
+        Three stages: (1) ``_mold`` on one worker thread, at most ``depth +
+        1`` chunks ahead (the input is read no further ahead than that); (2)
+        ``_launch`` issued from this thread, its masks pasted into the
+        batch's slot of a ring of ``depth + 1`` host buffers (pinned on the
+        card, reused for the whole stream), so that up to ``depth`` batches
+        stay in flight; (3) the oldest batch drained: wait on its event, then
+        unmold, which copies each image's masks out of the ring on the unmold
+        pool's threads and returns when every copy has ended. The ragged tail
+        is padded with zero images and the last meta, so the shapes never
+        change (the paste skips the padding). On a CPU device there is no
+        event: the batch is whole when ``_launch`` returns.
 
         Under a profiler each stage is a span of ``utils/profiling.py``
         carrying its batch's id: ``stream.prep`` (the worker), and on this
@@ -223,14 +232,10 @@ class Predictor:
         counted as ``unmold.pooled_images``), and on the pool's threads each
         image's ``unmold`` and ``unmold.masks``.
         """
-        cuda = self.device.type == "cuda"
 
         def prep(chunk, batch):
             with profiling.span("stream.prep", batch):
-                molded, metas = zip(*(process_input(img, self.config, image_id=i) for i, img in enumerate(chunk)))
-                pad = batch_size - len(chunk)
-                molded = list(molded) + [np.zeros_like(molded[0])] * pad
-                return np.stack(molded), np.stack(list(metas) + [metas[-1]] * pad), [img.shape for img in chunk]
+                return self._mold(chunk, batch_size)
 
         def submitted():
             """``(batch id, future of its prep)`` in order, at most ``depth + 1`` ahead."""
@@ -247,32 +252,18 @@ class Predictor:
                     if not chunk or len(ahead) > depth + 1:
                         yield ahead.popleft()
 
-        # K8's pinned ring: batch j writes slot j % (depth + 1), which batch
+        # the paste's ring: batch j writes slot j % (depth + 1), which batch
         # j - depth - 1 left when it was drained, a turn before
         ring = [torch.empty(0, dtype=torch.uint8)] * (depth + 1)
 
-        def launch(molded, metas, shapes, slot):
-            with profiling.span("stream.launch"):
-                detections, masks = self._forward(molded, metas)
-                if not cuda:
-                    return detections.numpy(), masks.numpy(), None, None
-                pasted = self._paste(detections, masks, metas, shapes, ring[slot])
-                ring[slot] = pasted.out
-                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (detections, pasted.kept)]
-                for h, t in zip(host, (detections, pasted.kept)):
-                    h.copy_(t, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                return host[0].numpy(), None, done, pasted._replace(kept=host[1].numpy())
-
         def drain(entry):
-            batch, detections, masks, done, pasted, metas, shapes = entry
-            if done is not None:
+            batch, launched, metas, shapes = entry
+            if launched.done is not None:
                 with profiling.span("stream.wait_device", batch):
                     profiling.host_sync(self.device)
-                    done.synchronize()
+                    launched.done.synchronize()
             with profiling.span("stream.unmold", batch):
-                return self._unmold(detections, masks, metas, shapes, pasted)
+                return self._unmold(launched.detections, metas, shapes, launched.pasted)
 
         # each turn of this thread is a span, so that its waits between stages
         # (for the interpreter lock, say) fall inside one; no span is open
@@ -284,7 +275,10 @@ class Predictor:
                     with profiling.span("stream.wait_ingress"):
                         molded, metas, shapes = future.result()
                     slot = launched % (depth + 1)
-                    inflight.append((batch,) + launch(molded, metas, shapes, slot) + (metas, shapes))
+                    with profiling.span("stream.launch"):
+                        entry = self._launch(molded, metas, shapes, ring[slot])
+                    ring[slot] = entry.pasted.out
+                    inflight.append((batch, entry, metas, shapes))
                     ready = drain(inflight.pop(0)) if len(inflight) > depth else []
                 yield from ready
             while inflight:
@@ -296,6 +290,6 @@ class Predictor:
             # flight, and K8 writes their ring slots through the host mapping,
             # which the caching host allocator does not track: wait for them
             # before the ring can be handed to another owner
-            for entry in inflight:
-                if entry[3] is not None:
-                    entry[3].synchronize()
+            for _, entry, _, _ in inflight:
+                if entry.done is not None:
+                    entry.done.synchronize()

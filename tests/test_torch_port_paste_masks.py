@@ -28,8 +28,8 @@ import torch.nn.functional as F
 
 from maskrcnn_tf2_tpu_torch import predictor as predictor_module
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
-from maskrcnn_tf2_tpu_torch.export import inference
-from maskrcnn_tf2_tpu_torch.export.inference import process_input, unmold_detections
+from maskrcnn_tf2_tpu_torch.data import transforms
+from maskrcnn_tf2_tpu_torch.export.inference import unmold_detections
 from maskrcnn_tf2_tpu_torch.kernels import paste_masks as k8
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
@@ -235,7 +235,7 @@ def test_box_arithmetic_equals_unmold_boxes(side):
             det[rs.randint(0, 20):, 4] = 0
         det[:, 5] = rs.uniform(0, 1, 20)
         n, boxes, keep = pixel_boxes(det, shape, (side, side), window)
-        want_n, want_boxes, want_keep = inference.unmold_boxes(det, shape, (side, side, 3), window)
+        want_n, want_boxes, want_keep = transforms.unmold_boxes(det, shape, (side, side, 3), window)
         assert n == want_n
         np.testing.assert_array_equal(boxes, want_boxes)
         np.testing.assert_array_equal(keep, want_keep)
@@ -313,59 +313,55 @@ def _recorded(fn):
 
 
 def test_predictor_hooks_hold_on_both_paths(tiny_predictor, monkeypatch):
-    """``_forward`` returns two tensors; ``unmold_detections`` runs once an
-    image through the ``predictor`` module, on the host loop and on the
-    pasted path (K8's plain version on CPU tensors); each ``unmold.masks``
-    span carries its image's masks as ``n``; both paths give equal results."""
+    """``_forward`` returns two tensors; ``detect`` and ``detect_stream`` of a
+    CPU predictor serve through the op (its plain version), once a batch, and
+    call ``unmold_detections`` once an image through the ``predictor``
+    module, always on a pasted block; each ``unmold.masks`` span carries its
+    image's masks as ``n``; the results equal the host loop,
+    ``unmold_detections`` over ``_forward``'s outputs, bit for bit."""
     pred = tiny_predictor
     images = _images()
-    molded, metas = zip(*(process_input(img, pred.config, image_id=i) for i, img in enumerate(images)))
-    metas = np.stack(metas)
-    shapes = [img.shape for img in images]
-    out = pred._forward(np.stack(molded), metas)
-    assert isinstance(out, tuple) and len(out) == 2 and all(isinstance(t, torch.Tensor) for t in out)
-    detections, masks = out
-    assert tuple(detections.shape) == (3, 10, 6) and tuple(masks.shape) == (3, 10, 28, 28)
-
+    forwards = []
     calls = collections.Counter()
     lock = threading.Lock()  # the pasted path calls from the unmold pool's threads
+    forward, paste = Predictor._forward, k8.paste_masks
+
+    def recorded(self, molded, metas):
+        out = forward(self, molded, metas)
+        assert isinstance(out, tuple) and len(out) == 2 and all(isinstance(t, torch.Tensor) for t in out)
+        forwards.append((out[0].numpy().copy(), out[1].numpy().copy(), metas))
+        return out
 
     def counted(*args, **kwargs):
         with lock:
             calls["pasted" if kwargs.get("pasted") is not None else "host"] += 1
         return unmold_detections(*args, **kwargs)
 
+    def pasting(*args, **kwargs):
+        calls["op"] += 1
+        return paste(*args, **kwargs)
+
+    monkeypatch.setattr(Predictor, "_forward", recorded)
     monkeypatch.setattr(predictor_module, "unmold_detections", counted)
-    det_np, masks_np = detections.numpy(), masks.numpy()
-    host, rec_host = _recorded(lambda: pred._unmold(det_np, masks_np, metas, shapes))
-    pasted = pred._paste(detections, masks, metas, shapes, torch.empty(0, dtype=torch.uint8))
-    pasted = pasted._replace(kept=pasted.kept.numpy())
-    batch = profiling.new_batch()
+    monkeypatch.setattr(k8, "paste_masks", pasting)
+    detected, rec = _recorded(lambda: pred.detect(images))
+    streamed = list(pred.detect_stream(iter(images), batch_size=2, depth=1))
+    assert calls == {"op": 3, "pasted": 6}
+    assert [f[0].shape for f in forwards] == [(3, 10, 6), (2, 10, 6), (2, 10, 6)]
+    assert forwards[0][1].shape == (3, 10, 28, 28)
 
-    def pooled():
-        with profiling.span("stream.unmold", batch):
-            return pred._unmold(det_np, None, metas, shapes, pasted)
-
-    device, rec_device = _recorded(pooled)
-    assert calls == {"host": 3, "pasted": 3}
-    for got, want in zip(device, host):
-        assert_results_equal(got, want)
-    n_masks = [len(r["class_ids"]) for r in host]
+    # (forward, its row, the image): detect's one batch, then the stream's two
+    rows = [(0, 0, 0), (0, 1, 1), (0, 2, 2), (1, 0, 0), (1, 1, 1), (2, 0, 2)]
+    assert len(detected + streamed) == len(rows)
+    for got, (f, i, j) in zip(detected + streamed, rows):
+        det, masks, metas = forwards[f]
+        assert_results_equal(got, unmold_detections(det[i], masks[i], images[j].shape, pred.config.image_shape,
+                                                    metas[i][7:11]))
+    n_masks = [len(r["class_ids"]) for r in detected]
     assert sum(n_masks) > 0
-    assert [s.n for s in rec_host.spans if s.name == "unmold.masks"] == n_masks
-    # the pool's threads record in the order they end: each image's count, as a multiset per batch
-    by_batch = collections.defaultdict(collections.Counter)
-    for s in rec_device.spans:
-        if s.name == "unmold.masks":
-            by_batch[s.batch][s.n] += 1
-    assert by_batch == {batch: collections.Counter(n_masks)}
-    counts = [c for c in rec_device.counts if c.name == "unmold.device_masks"]
-    assert sum(c.n for c in counts) == sum(n_masks) and not rec_host.counts
-
-    calls.clear()
-    pred.detect(images[:2])
-    list(pred.detect_stream(iter(images), batch_size=2, depth=1))
-    assert calls == {"host": 5}  # a CPU predictor keeps the host loop
+    # the pool's threads record in the order they end: each image's count, as a multiset
+    assert collections.Counter(s.n for s in rec.spans if s.name == "unmold.masks") == collections.Counter(n_masks)
+    assert sum(c.n for c in rec.counts if c.name == "unmold.device_masks") == sum(n_masks)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +388,7 @@ def pasted_batch(k, seed):
 @pytest.mark.parametrize("k", [2, 3, 8])
 def test_pooled_unmold_equals_inline_in_input_order(tiny_predictor, k):
     det, metas, shapes, pasted, inline = pasted_batch(k, seed=k)
-    got = tiny_predictor._unmold(det, None, metas, shapes, pasted)
+    got = tiny_predictor._unmold(det, metas, shapes, pasted)
     assert len(got) == k
     for g, w in zip(got, inline):
         assert_results_equal(g, w)
@@ -403,7 +399,7 @@ def test_pooled_results_share_no_byte_with_the_ring(tiny_predictor, k):
     """K8 writes the ring again a turn later: what ``_unmold`` returned is
     the caller's alone."""
     det, metas, shapes, pasted, inline = pasted_batch(k, seed=10 + k)
-    got = tiny_predictor._unmold(det, None, metas, shapes, pasted)
+    got = tiny_predictor._unmold(det, metas, shapes, pasted)
     ring = pasted.out.numpy()
     assert not any(np.shares_memory(r["masks"], ring) for r in got)
     ring[:] = 0xAB
@@ -427,7 +423,7 @@ def test_pooled_unmold_raises_after_every_copy_has_ended(tiny_predictor, monkeyp
 
     monkeypatch.setattr(predictor_module, "unmold_detections", slow)
     with pytest.raises(RuntimeError, match="do not match"):
-        tiny_predictor._unmold(det, None, metas, shapes, pasted)
+        tiny_predictor._unmold(det, metas, shapes, pasted)
     assert len(ended) == 5
 
 
@@ -441,7 +437,7 @@ def test_pool_span_and_count(tiny_predictor, k):
 
     def run():
         with profiling.span("stream.unmold", batch):
-            return tiny_predictor._unmold(det[:k], None, metas[:k], shapes[:k],
+            return tiny_predictor._unmold(det[:k], metas[:k], shapes[:k],
                                           pasted._replace(offsets=pasted.offsets[:k], kept=pasted.kept[:k]))
 
     _, rec = _recorded(run)
@@ -473,11 +469,10 @@ def test_pool_is_made_once_and_holds_at_most_the_usable_cpus(tiny_predictor, mon
     assert made == [2]
     pool = pred._unmold_pool
     det, metas, shapes, pasted, inline = pasted_batch(8, seed=40)
-    pred._unmold(det[:1], None, metas[:1], shapes[:1], pasted._replace(offsets=pasted.offsets[:1],
-                                                                       kept=pasted.kept[:1]))
+    pred._unmold(det[:1], metas[:1], shapes[:1], pasted._replace(offsets=pasted.offsets[:1], kept=pasted.kept[:1]))
     assert not pool._threads
     for _ in range(3):
-        for g, w in zip(pred._unmold(det, None, metas, shapes, pasted), inline):
+        for g, w in zip(pred._unmold(det, metas, shapes, pasted), inline):
             assert_results_equal(g, w)
         threads = set(pool._threads)
         assert 1 <= len(threads) <= 2 and all(t.is_alive() for t in threads)
@@ -485,13 +480,17 @@ def test_pool_is_made_once_and_holds_at_most_the_usable_cpus(tiny_predictor, mon
 
 
 def test_cpu_predictor_keeps_the_host_loop_off_the_pool(tiny_predictor):
-    """``detect`` and ``detect_stream`` on a CPU device paste on the host,
-    one image after another: no pool span, no pooled image."""
+    """On a CPU device the host loop (the op's plain version) runs in one
+    ``paste`` span a batch on the calling thread; the pool only copies the
+    masks out of the blocks: one ``unmold.pool`` span a batch of several
+    images, none for a batch of one."""
     images = _images()
     _, rec = _recorded(lambda: (tiny_predictor.detect(images), list(tiny_predictor.detect_stream(iter(images), 2, 1))))
+    pastes = [s for s in rec.spans if s.name == "paste"]
+    assert len(pastes) == 3 and {s.thread for s in pastes} == {threading.get_native_id()}
     assert sum(s.name == "unmold" for s in rec.spans) == 6
-    assert not [s for s in rec.spans if s.name == "unmold.pool"]
-    assert not [c for c in rec.counts if c.name == "unmold.pooled_images"]
+    assert [s.n for s in rec.spans if s.name == "unmold.pool"] == [3, 2]
+    assert sum(c.n for c in rec.counts if c.name == "unmold.pooled_images") == 5
 
 
 # ---------------------------------------------------------------------------

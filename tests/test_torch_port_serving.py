@@ -204,6 +204,38 @@ def test_detect_stream_reads_ahead_at_most_depth_plus_one_chunks(predictor, dept
     assert len(list(stream)) == len(images) - 1
 
 
+@pytest.mark.parametrize("route", ["detect", "stream_depth0", "stream_depth2"])
+def test_served_path_equals_the_host_loop(predictor, monkeypatch, route):
+    """Ragged shapes, one image keeping no detection (its forward's
+    detections zeroed: class 0 first): ``detect`` over the five images, and
+    ``detect_stream`` at batch 2 (a padded tail), equal the host loop,
+    ``unmold_detections`` over the same forwards' 28x28 masks, bit for bit."""
+    images = stream_images()
+    empty = images[2].shape[:2]  # the only 90x60 image
+    forwards = []
+    forward = Predictor._forward
+
+    def recorded(self, molded, metas):
+        detections, masks = forward(self, molded, metas)
+        none = torch.from_numpy((metas[:, 1:3] == empty).all(1))
+        detections = torch.where(none[:, None, None], torch.zeros_like(detections), detections)
+        forwards.append((detections.numpy().copy(), masks.numpy().copy(), metas))
+        return detections, masks
+
+    monkeypatch.setattr(Predictor, "_forward", recorded)
+    if route == "detect":
+        got = predictor.detect(images)
+    else:
+        got = list(predictor.detect_stream(iter(images), batch_size=2, depth=int(route[-1])))
+    assert len(forwards) == (1 if route == "detect" else 3)
+    rows = [(det[i], masks[i], metas[i]) for det, masks, metas in forwards for i in range(len(metas))]
+    want = [port_inference.unmold_detections(det, masks, img.shape, predictor.config.image_shape, meta[7:11])
+            for (det, masks, meta), img in zip(rows, images)]
+    kept = [len(r["class_ids"]) for r in got]
+    assert kept[2] == 0 and min(kept[:2] + kept[3:]) > 0
+    assert_results_equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the CLIs
 # ---------------------------------------------------------------------------

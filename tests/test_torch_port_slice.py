@@ -23,6 +23,7 @@ from maskrcnn_tf2_tpu.ops.image import compose_image_meta
 from maskrcnn_tf2_tpu.predictor import Predictor as JaxPredictor
 
 from maskrcnn_tf2_tpu_torch.config import MaskRCNNConfig
+from maskrcnn_tf2_tpu_torch.data import transforms as port_transforms
 from maskrcnn_tf2_tpu_torch.export import inference as port_inference
 from maskrcnn_tf2_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tf2_tpu_torch.predictor import Predictor
@@ -133,7 +134,7 @@ def test_unmold_mask_matches_cv2():
         mask = rs.uniform(size=(28, 28)).astype(np.float32)
         y1, x1 = rs.randint(0, 100, 2)
         box = (y1, x1, y1 + rs.randint(5, 150), x1 + rs.randint(5, 150))
-        ours = port_inference.unmold_mask(mask, box, (256, 256, 3))
+        ours = port_transforms.unmold_mask(mask, box, (256, 256, 3))
         ref = jax_transforms.unmold_mask(mask, box, (256, 256, 3))
         agree, total = agree + int((ours == ref).sum()), total + ours.size
     assert agree / total >= 0.995

@@ -132,7 +132,10 @@ def test_off_records_nothing_and_opens_no_range(predictor, monkeypatch):
 
 def test_spans_parents_batches_and_the_profilers_ranges(predictor, tmp_path):
     (detected, streamed), rec = _profiled(lambda: _serve(predictor), str(tmp_path))
-    assert rec.counts == [] and rec.dropped == 0  # no host waits without a card
+    # no host waits without a card; the masks copied out of the three batches' blocks, the images of the two
+    # batches of two handed to the unmold pool
+    assert collections.Counter(c.name for c in rec.counts) == {"unmold.device_masks": 3, "unmold.pooled_images": 2}
+    assert rec.dropped == 0
     spans = rec.spans
     by_name = collections.defaultdict(list)
     for s in spans:
@@ -141,10 +144,11 @@ def test_spans_parents_batches_and_the_profilers_ranges(predictor, tmp_path):
     (detect,) = by_name["detect"]
     assert detect.parent is None and detect.batch is not None
     in_detect = [s for s in spans if detect.start <= s.start and s.end <= detect.end and s is not detect]
-    assert all(s.batch == detect.batch and s.thread == detect.thread for s in in_detect)
+    pooled = ("unmold", "unmold.masks")  # on the unmold pool's threads
+    assert all(s.batch == detect.batch and (s.thread == detect.thread) != (s.name in pooled) for s in in_detect)
     names = collections.Counter(s.name for s in in_detect)
-    assert names == collections.Counter({"ingress": 2, "forward": 1, "fetch": 1, "unmold": 2, "unmold.masks": 2,
-                                         **{c: 1 for c in FORWARD_CHILDREN}})
+    assert names == collections.Counter({"ingress": 2, "forward": 1, "paste": 1, "fetch": 1, "unmold.pool": 1,
+                                         "unmold": 2, "unmold.masks": 2, **{c: 1 for c in FORWARD_CHILDREN}})
 
     # the stream: batches 0 (images 1-2) and 1 (image 3, padded), ids after the request's; at depth 1 this
     # thread's three turns launch 0, launch 1 and drain 0, and drain 1
@@ -159,22 +163,28 @@ def test_spans_parents_batches_and_the_profilers_ranges(predictor, tmp_path):
     main = detect.thread
     assert all(s.thread == main for s in steps + waits + launches + unmolds) and all(s.thread != main for s in prep)
 
-    parents = {"ingress": {"detect", "stream.prep"}, "forward": {"detect", "stream.launch"}, "fetch": {"detect"},
-               "unmold": {"detect", "stream.unmold"}, "unmold.masks": {"unmold"}, "stream.prep": {None},
+    # a batch of several images unmolds on the pool's threads, where no span is open; one image, inline
+    parents = {"ingress": {"detect", "stream.prep"}, "forward": {"detect", "stream.launch"},
+               "paste": {"detect", "stream.launch"}, "fetch": {"detect"}, "unmold.pool": {"detect", "stream.unmold"},
+               "unmold": {None, "stream.unmold"}, "unmold.masks": {"unmold"}, "stream.prep": {None},
                **{c: {"forward"} for c in FORWARD_CHILDREN},
                **{f"stream.{c}": {"stream.step"} for c in ("wait_ingress", "launch", "unmold")}}
     for s in spans:
         if s.name in parents:
             assert s.parent in parents[s.name], s
-    for name, count in (("ingress", 5), ("forward", 3), ("unmold", 5), ("unmold.masks", 5)):
+    for name, count in (("ingress", 5), ("forward", 3), ("paste", 3), ("unmold.pool", 2), ("unmold", 5),
+                        ("unmold.masks", 5)):
         assert len(by_name[name]) == count, name
     for outer in prep + launches + unmolds:  # a stage's children carry its batch, on its thread
         inner = [s for s in spans if s.thread == outer.thread and outer.start <= s.start and s.end <= outer.end
                  and s is not outer]
         assert inner and all(s.batch == outer.batch for s in inner)
     masks = [len(r["class_ids"]) for r in detected + streamed]
-    assert [s.n for s in by_name["unmold"]] == masks and [s.n for s in by_name["unmold.masks"]] == masks
-    assert sum(masks) > 0
+    # the pool's threads record in the order they end: each batch's images' counts, as a multiset
+    want = collections.Counter(zip([detect.batch] * 2 + batches[:1] * 2 + batches[1:], masks))
+    for name in ("unmold", "unmold.masks"):
+        assert collections.Counter((s.batch, s.n) for s in by_name[name]) == want, name
+    assert [s.n for s in by_name["unmold.pool"]] == [2, 2] and sum(masks) > 0
 
     # each span is a profiler range on the same thread, of the same duration: within 50 us at the median,
     # and nine in ten within 100 us and 1 % of the span. The profiler stamps a range on its own clock (the
@@ -335,8 +345,8 @@ def test_idle_gaps_without_device_work(tmp_path):
 def test_host_sync_counts_what_sync_debug_reports():
     """Every synchronizing call that sync debug mode reports in one ``detect``
     batch and one ``detect_stream`` batch is a counted ``host_sync``, and no
-    other; the stream's event wait, which that mode does not report, is
-    counted once a batch inside ``stream.wait_device``."""
+    other; the event wait, which that mode does not report, is counted once a
+    batch inside ``fetch`` (``detect``) and ``stream.wait_device``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the host waits only for a device")
     cfg = MaskRCNNConfig(**TINY)
@@ -366,7 +376,9 @@ def test_host_sync_counts_what_sync_debug_reports():
     stream = lambda: list(pred.detect_stream(iter(images), batch_size=2, depth=1))  # noqa: E731
     want = reported(detect)
     got = counted(detect)
-    assert sum(c.n for c in got) == len(want) == 11, (want, got)
+    waits = [c for c in got if c.span == "fetch"]
+    assert sum(c.n for c in waits) == 1 and sum(c.n for c in got) == 10
+    assert sum(c.n for c in got if c not in waits) == len(want) == 9, (want, got)
     want = reported(stream)
     got = counted(stream)
     waits = [c for c in got if c.span == "stream.wait_device"]
